@@ -1,6 +1,6 @@
 """Multi-host (DCN-path) solve: a REAL 2-process CPU cluster.
 
-The CI analogue of N TPU hosts (SURVEY.md §5.8): two processes, two
+The CI analogue of N accelerator hosts (SURVEY.md §5.8): two processes, two
 virtual devices each, joined via ``jax.distributed`` with gloo CPU
 collectives; the level-striped solve's per-level psum crosses the
 process boundary — the structural equivalent of DCN traffic.

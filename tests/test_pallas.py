@@ -1,356 +1,143 @@
-"""Fused Pallas ldiv kernel: interpret-mode equivalence on CPU.
+"""The Triton tile-LU kernel (ops/pallas_factor.py) and the rule that no
+kernel runs through the Pallas interpreter outside tests.
 
-The op-stream kernel (ops/pallas_ldiv.py) targets TPU (lane-aligned pages,
-VMEM-resident panels); interpret mode validates the op ordering, the page
-DMA choreography, the phase-boundary zeroing and the panel routing against
-the XLA engine's full ``ldiv`` on the same factorization.
+On the CPU the kernel runs in interpret mode: the same kernel body, traced
+and executed by the Pallas interpreter. The compiled kernel is checked by
+the ``gpu``-marked test here and by ``chip_smoke.py`` on the card.
 """
 
+import pathlib
+
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
 
 from tpu_sparse_lu import ParallelSparseLU, SolverConfig
-from tpu_sparse_lu.models import fe_block_matrix, laplacian_1d, poisson_2d
-from tpu_sparse_lu.ops.pallas_ldiv import (
-    PAGE,
-    SRC_LDINV,
-    SRC_LOFF,
-    SRC_PERMP,
-    SRC_PERMQ,
-    SRC_SHIFT,
-    SRC_UDINV,
-    SRC_UOFF,
-    build_ldiv_ops,
-    build_lu_stream,
-    build_perm_stream,
-    pallas_fused_ldiv,
-    stream_gather_spec,
-    supports_fused_ldiv,
-)
-from tpu_sparse_lu.solve import block_rhs, unblock_rhs
+from tpu_sparse_lu.models import laplacian_1d, poisson_2d
+from tpu_sparse_lu.ops import pallas_factor
+from tpu_sparse_lu.ops.pallas_factor import lu_tile
+from tpu_sparse_lu.refactor import _lu_nopivot
+
+# max|L U - D| / max|D| for diagonally dominant tiles: a few hundred ulps
+# of each dtype (cs-term dot products, error growth bounded by dominance)
+_LU_BOUND = {np.float32: 1e-5, np.float64: 1e-13}
 
 
-def _build_ops(F):
-    ops = build_ldiv_ops(
-        F._pvec, F.plan.lplan, F.plan.uplan, F._qvec, KA=F._K_in
-    )
-    assert ops is not None
-    sizes = {
-        SRC_PERMP: ops.res_p.shape[0],
-        SRC_LDINV: F.plan.lplan.K + 1,
-        SRC_LOFF: F.plan.lplan.T + 1,
-        SRC_UDINV: F.plan.uplan.K + 1,
-        SRC_UOFF: F.plan.uplan.T + 1,
-        SRC_PERMQ: ops.res_q.shape[0],
-    }
-    s_perm = build_perm_stream(
-        jnp.asarray(stream_gather_spec(ops, sizes, 0)),
-        jnp.asarray(ops.res_p), jnp.asarray(ops.res_q),
-    )
-    s_lu = build_lu_stream(
-        jnp.asarray(stream_gather_spec(ops, sizes, 1)),
-        F.ldata.diag_inv, F.ldata.offdiag,
-        F.udata.diag_inv, F.udata.offdiag,
-        dtype=F._stream_dt,  # honours SolverConfig.stream_dtype
-    )
-    return ops, s_perm, s_lu
+def _dominant_tiles(rng, batch, cs, dtype):
+    D = rng.standard_normal((batch, cs, cs))
+    D += cs * np.eye(cs)  # diagonally dominant: no-pivot LU is stable
+    return D.astype(dtype)
 
 
-def _fused_ldiv(F, b):
-    ops, s_perm, s_lu = _build_ops(F)
-    xw = block_rhs(b, F.n, F._K_in, F.plan.cs) * F._rs_blk
-    out = pallas_fused_ldiv(ops, s_perm, s_lu, xw, interpret=True)
-    return unblock_rhs(out, F.n)
+def _check_lu(got, D, dtype):
+    cs = D.shape[-1]
+    got = np.asarray(got, dtype=np.float64)
+    L = np.tril(got, -1) + np.eye(cs)
+    U = np.triu(got)
+    err = np.abs(L @ U - D).max() / np.abs(D).max()
+    assert err <= _LU_BOUND[dtype], f"|LU - D| / |D| = {err:.2e}"
 
 
-@pytest.mark.parametrize("make", [
-    lambda rng: poisson_2d(10, 8),
-    lambda rng: laplacian_1d(50),
-    lambda rng: fe_block_matrix(rng, 10, 5),
-])
-@pytest.mark.parametrize("R", [1, 4])
-def test_fused_ldiv_matches_xla(rng, make, R):
-    A = make(rng)
-    n = A.shape[0]
-    F = ParallelSparseLU(
-        A, config=SolverConfig(chunk_size=8, tri_mode="inv", dtype="float32")
-    )
-    b = jnp.asarray(rng.random((n, R)), dtype=jnp.float32)
-    ref = np.asarray(F.ldiv(b))  # XLA path (CPU backend -> not fused)
-    got = np.asarray(_fused_ldiv(F, b))
-    np.testing.assert_allclose(got, ref, rtol=1e-5, atol=1e-6)
-
-
-def test_fused_ldiv_nd_embedding(rng):
-    """Rectangular perm maps (input space != factor space) through the
-    nested-dissection embedding."""
-    A = poisson_2d(12, 12)
-    F = ParallelSparseLU(
-        A, config=SolverConfig(chunk_size=16, tri_mode="inv",
-                               dtype="float32", ordering="nd")
-    )
-    assert F.n_factor > F.n  # the embedding actually extended
-    b = jnp.asarray(rng.random((A.shape[0], 3)), dtype=jnp.float32)
-    ref = np.asarray(F.ldiv(b))
-    got = np.asarray(_fused_ldiv(F, b))
-    np.testing.assert_allclose(got, ref, rtol=1e-5, atol=1e-6)
-
-
-def test_op_stream_structure(rng):
-    """Every tile op appears exactly once, in dependency order."""
-    A = poisson_2d(12, 12)
-    F = ParallelSparseLU(A, chunk_size=8, config=None)
-
-    ops = build_ldiv_ops(
-        F._pvec, F.plan.lplan, F.plan.uplan, F._qvec, KA=F._K_in
-    )
-    lplan, uplan = F.plan.lplan, F.plan.uplan
-    # coverage: each factor's diag ops == K (SET), off-diag ops == T (ADD)
-    is_diag = np.isin(ops.tile_base, (SRC_LDINV, SRC_UDINV))
-    is_off = np.isin(ops.tile_base, (SRC_LOFF, SRC_UOFF))
-    assert int(np.sum(is_diag)) == lplan.K + uplan.K
-    assert int(np.sum(is_off)) == lplan.T + uplan.T
-    # set-ops: the diag solves (in place, src == dst) plus the un-pivot
-    # phase's first write per output block (the output space aliases the
-    # dead input space, so first writes must SET over stale values)
-    acc0 = np.asarray(ops.acc) == 0
-    assert np.all(acc0[is_diag])
-    out_sets = acc0 & ~is_diag
-    assert np.all(ops.dst[out_sets] <= ops.KA)   # only output blocks
-    assert np.all(ops.src[is_diag] == ops.dst[is_diag])
-    # padding (one run per page-aligned segment) points at the dummy
-    # panel block with a zero tile
-    dummy = ops.panel_blocks - 1
-    pad = ops.tile_base == -1
-    assert int(np.sum(~pad)) == ops.n_ops
-    assert np.all(ops.src[pad] == dummy)
-    assert np.all(ops.dst[pad] == dummy)
-    assert ops.src.shape[0] % PAGE == 0
-    # pages are single-kind: int8 perm residue on kind-0 pages, L/U on
-    # f32 kind-1 pages, zero-byte shift ops on kind-2 pages
-    kind_of_slot = np.repeat(ops.page_kind, PAGE)
-    perm_slot = np.isin(ops.tile_base, (SRC_PERMP, SRC_PERMQ))
-    lu_slot = np.isin(ops.tile_base, (SRC_LDINV, SRC_LOFF,
-                                      SRC_UDINV, SRC_UOFF))
-    shift_slot = ops.tile_base == SRC_SHIFT
-    assert np.all(kind_of_slot[perm_slot] == 0)
-    assert np.all(kind_of_slot[lu_slot] == 1)
-    assert np.all(kind_of_slot[shift_slot] == 2)
-    # every perm (dst_chunk, src_chunk) pair is covered exactly once: as
-    # shift runs (with valid lane ranges) or as an int8 residue tile, and
-    # the vector decomposition reproduces the dense one-hot tiles exactly
-    from tpu_sparse_lu.ops.pallas_ldiv import perm_spec
-
-    cs8 = F.plan.cs
-    for vec, pp, K_in in ((F._pvec, F._pperm, F._K_in),
-                          (F._qvec, F._qperm, F.plan.lplan.K)):
-        shifts, mm, res = perm_spec(vec, cs8, K_in)
-        covered = {(d, s) for d, s, *_ in shifts} | {(d, s) for d, s, _ in mm}
-        dense = np.asarray(pp.tiles)          # (K, S, cs, cs)
-        srcs = np.asarray(pp.src)
-        real = {(k, int(srcs[k, a]))
-                for k, a in zip(*np.nonzero(dense.any(axis=(2, 3))))}
-        assert covered == real
-        # rebuild each pair's one-hot from runs+residue; compare to dense
-        for k in range(dense.shape[0]):
-            for a in range(dense.shape[1]):
-                sc = int(srcs[k, a])
-                if sc >= pp.K_in:
-                    continue
-                want = dense[k, a]
-                got = np.zeros_like(want)
-                for (d, s, dl, l, h) in shifts:
-                    if (d, s) == (k, sc):
-                        lanes = np.arange(l, h)
-                        got[lanes, (lanes - dl) % cs8] = 1
-                for (d, s, t) in mm:
-                    if (d, s) == (k, sc):
-                        got |= res[t]
-                np.testing.assert_array_equal(got, want)
-    # real shift runs have non-empty lane ranges; block-zeroing ops
-    # (src = dummy, acc = 0 — the un-pivot SET of partially covered
-    # output blocks) legitimately carry lo == hi == 0
-    dummy_blk = ops.panel_blocks - 1
-    zero_op = shift_slot & (ops.src == dummy_blk) & (ops.acc == 0)
-    run_op = shift_slot & ~zero_op
-    assert np.all(ops.lo[run_op] < ops.hi[run_op])
-    assert np.all(ops.hi[run_op] <= ops.cs)
-    assert np.all(ops.hi[zero_op] == 0)
-    # dependency order within L: a chunk's diag solve precedes every op
-    # consuming it as source, and follows every op targeting it
-    seen_solved = set()
-    for i in range(ops.src.shape[0]):
-        s, d = int(ops.src[i]), int(ops.dst[i])
-        if ops.tile_base[i] == SRC_LDINV:
-            seen_solved.add(d)
-        if ops.tile_base[i] == SRC_LOFF:
-            assert s in seen_solved  # source chunk already solved
-            assert d not in seen_solved  # destination not yet solved
-
-
-def test_supports_fused_ldiv_gates(rng):
-    A = poisson_2d(10, 10)
-    F8 = ParallelSparseLU(
-        A, config=SolverConfig(chunk_size=8, tri_mode="inv", dtype="float32")
-    )
-    ops = build_ldiv_ops(
-        F8._pvec, F8.plan.lplan, F8.plan.uplan, F8._qvec, KA=F8._K_in
-    )
-    assert not supports_fused_ldiv(ops, 16)          # cs=8 not lane-aligned
-    assert not supports_fused_ldiv(None, 16)
-    assert not supports_fused_ldiv(ops, 16, itemsize=8)  # f64
-
-
-def test_lu_tile_interpret_matches_nopivot(rng):
-    """The Pallas masked-reduction LU kernel (ops/pallas_factor.py) vs the
-    XLA reference `_lu_nopivot` on random diagonally-dominant batches —
-    interpret mode, so the TPU elimination kernel is CI-covered
-    (supports_lu_tile gates the real backend)."""
-    from tpu_sparse_lu.ops.pallas_factor import lu_tile
-    from tpu_sparse_lu.refactor import _lu_nopivot
-
-    cs = 16
-    D = rng.standard_normal((5, cs, cs)).astype(np.float32)
-    D += cs * np.eye(cs, dtype=np.float32)  # no-pivot-stable
-    want = np.asarray(_lu_nopivot(jnp.asarray(D)))
+@pytest.mark.parametrize("batch", [1, 3])
+@pytest.mark.parametrize("dtype", [np.float32, np.float64])
+@pytest.mark.parametrize("cs", [16, 32, 64, 128])
+def test_lu_tile_interpret_matches_reference(rng, cs, dtype, batch):
+    """Interpret-mode kernel against the XLA rank-1 loop (_lu_nopivot) and
+    a float64 NumPy reconstruction of every tile."""
+    D = _dominant_tiles(rng, batch, cs, dtype)
     got = np.asarray(lu_tile(jnp.asarray(D), interpret=True))
-    np.testing.assert_allclose(got, want, rtol=1e-5, atol=1e-6)
+    assert got.dtype == dtype and got.shape == D.shape
+    want = np.asarray(_lu_nopivot(jnp.asarray(D)))
+    rtol = 1e-5 if dtype == np.float32 else 1e-12
+    np.testing.assert_allclose(got, want, rtol=rtol, atol=rtol)
+    _check_lu(got, D.astype(np.float64), dtype)
 
 
-def test_fused_ldiv_gather_fallback_perm(rng):
-    """Vector-decomposed perms keep the fused path available when the
-    block-one-hot PermPlan itself falls back to gather (high fan-in —
-    the n ~ 1e5 regime where one-hot tile grids exceed the memory cap).
-    Forces the fallback via max_fanin and checks the interpret-mode fused
-    solve against scipy."""
-    import scipy.sparse as sp
-    import scipy.sparse.linalg as spla
+@pytest.fixture
+def gpu_device():
+    if jax.default_backend() != "gpu":
+        pytest.skip("needs an NVIDIA GPU: SPARSE_LU_TESTS_ON_GPU=1 python -m "
+                    "pytest tests -m gpu (chip_smoke.py runs the same check)")
+    return jax.devices()[0]
 
-    from tpu_sparse_lu.ops import permute as pm
 
-    A = poisson_2d(12, 10)
-    n = A.shape[0]
-    orig = pm.build_perm_plan
+@pytest.mark.gpu
+def test_lu_tile_compiled_matches_reference(rng, gpu_device):
+    """The kernel as Triton compiles it for the card, at the widths the
+    device refactorization uses."""
+    for cs in (64, 128):
+        for dtype in (np.float32, np.float64):
+            D = _dominant_tiles(rng, 5, cs, dtype)
+            _check_lu(lu_tile(jnp.asarray(D)), D.astype(np.float64), dtype)
 
-    def tiny_fanin(perm, n_, cs, **kw):
-        kw["max_fanin"] = 1  # force the gather fallback for every plan
-        return orig(perm, n_, cs, **kw)
 
-    pm.build_perm_plan = tiny_fanin
+def test_no_interpret_outside_tests():
+    """No library or entry-point source runs a kernel through the Pallas
+    interpreter: interpret mode exists for the tests alone."""
+    root = pathlib.Path(__file__).resolve().parents[1]
+    files = list((root / "tpu_sparse_lu").rglob("*.py"))
+    files += [root / "bench.py", root / "chip_smoke.py"]
+    offenders = [str(f) for f in files
+                 if f.exists() and "interpret=True" in f.read_text()]
+    assert not offenders
+
+
+def test_gpu_refactor_compiles_tile_lu_kernel(rng, monkeypatch):
+    """With the backend reported as "gpu", the device refactorization
+    routes its diagonal tiles through the tile-LU kernel, and never with
+    interpret=True. The Pallas call itself is replaced by the XLA
+    reference here (there is no card to compile for)."""
+    calls = []
+
+    def fake_pallas_call(kernel, **kw):
+        calls.append(kw)
+        return lambda D: _lu_nopivot(D)
+
+    monkeypatch.setattr(jax, "default_backend", lambda: "gpu")
+    monkeypatch.setattr(pallas_factor.pl, "pallas_call", fake_pallas_call)
+    jax.clear_caches()
     try:
+        A = poisson_2d(12, 12)
         F = ParallelSparseLU(A, config=SolverConfig(
-            chunk_size=8, tri_mode="inv", dtype="float32"))
+            chunk_size=16, ordering="nd", dtype="float32",
+            factorize="device"))
+        assert F._tile_lu
     finally:
-        pm.build_perm_plan = orig
-    assert F._pperm.gather_idx is not None  # fallback actually engaged
-    b = jnp.asarray(rng.random((n, 4)), dtype=jnp.float32)
-    got = np.asarray(_fused_ldiv(F, b))
-    want = spla.spsolve(sp.csc_matrix(A), np.asarray(b))
-    np.testing.assert_allclose(got, want, rtol=1e-4, atol=1e-5)
-
-
-def test_fused_ldiv_fuzz(rng):
-    """Property fuzz across sizes, chunk sizes, RHS widths and orderings
-    (reference-style randomized sweep, runtests.jl:31-34): the fused
-    interpret solve must match scipy on every instance — hardens the
-    vector perm decomposition (shift runs + residues) against ragged
-    tails, non-divisible n, and scrambled pivots."""
-    import scipy.sparse as sp
+        jax.clear_caches()
+    assert calls, "the refactorization never reached the tile-LU kernel"
+    assert all(kw["interpret"] is False for kw in calls)
+    assert all(kw["backend"] == "triton" for kw in calls)
+    b = rng.random(A.shape[0])
     import scipy.sparse.linalg as spla
 
-    from tpu_sparse_lu.models import random_sparse
-
-    cases = 0
-    for trial in range(12):
-        n = int(rng.integers(17, 90))
-        cs = int(rng.choice([4, 8, 16]))
-        R = int(rng.choice([1, 3, 8]))
-        A = random_sparse(rng, n, density=0.08) + sp.eye(n) * 3.0
-        A = sp.csc_matrix(A)
-        try:
-            F = ParallelSparseLU(A, config=SolverConfig(
-                chunk_size=cs, tri_mode="inv", dtype="float32"))
-        except RuntimeError:
-            continue  # singular draw
-        b = jnp.asarray(rng.random((n, R)), dtype=jnp.float32)
-        got = np.asarray(_fused_ldiv(F, b))
-        want = spla.spsolve(A, np.asarray(b))
-        if R == 1:
-            want = want.reshape(n, 1)
-        scale = max(np.abs(want).max(), 1.0)
-        np.testing.assert_allclose(got / scale, want / scale,
-                                   rtol=2e-4, atol=2e-4)
-        cases += 1
-    assert cases >= 8  # the sweep must mostly run, not skip
+    x = np.asarray(F.ldiv(b, refine_steps=1), dtype=np.float64)
+    np.testing.assert_allclose(x, spla.spsolve(A.tocsc(), b),
+                               rtol=1e-4, atol=1e-5)
 
 
-def test_fused_ldiv_strip_paging(rng, monkeypatch):
-    """R-strip panel paging (VERDICT r3 #3): when the full RHS panel
-    exceeds the VMEM budget, fused_ldiv_auto pages it through the kernel
-    in max_fused_rhs-wide strips and the concatenated result matches the
-    XLA engine. Forced here by shrinking the module's VMEM budget."""
-    from tpu_sparse_lu.ops import pallas_ldiv as pld
+def test_gpu_single_rhs_chain_takes_associative_scan(rng, monkeypatch):
+    """A 1-D chain's R = 1 solve on the GPU runs the lax.associative_scan
+    substitution (ops/scan_solve.py), not a kernel."""
+    from tpu_sparse_lu.ops import scan_solve
 
-    A = poisson_2d(10, 8)
-    n = A.shape[0]
-    F = ParallelSparseLU(
-        A, config=SolverConfig(chunk_size=8, tri_mode="inv", dtype="float32")
-    )
-    ops, s_perm, s_lu = _build_ops(F)
-    monkeypatch.setattr(pld, "_LANES", 8)  # test-size chunks
-    pages = 2 * pld.PAGE * 8 * 8 * 5
-    panel8 = ops.panel_blocks * 8 * 8 * 4  # Rp = 8 panel bytes
-    monkeypatch.setattr(pld, "_VMEM_BUDGET", pages + panel8 + panel8 // 2)
-    assert pld.supports_fused_ldiv(ops, 1)
-    assert not pld.supports_fused_ldiv(ops, 20)  # full panel over budget
-    assert pld.max_fused_rhs(ops) == 8
-    R = 20  # 3 strips: 8 + 8 + 4
-    b = jnp.asarray(rng.random((n, R)), dtype=jnp.float32)
-    xw = block_rhs(b, F.n, F._K_in, F.plan.cs) * F._rs_blk
-    out = pld.fused_ldiv_auto(ops, s_perm, s_lu, xw, interpret=True)
-    got = np.asarray(unblock_rhs(out, F.n))
-    ref = np.asarray(F.ldiv(b))  # XLA path (CPU backend -> not fused)
-    np.testing.assert_allclose(got, ref, rtol=1e-5, atol=1e-6)
+    seen = []
+    orig = scan_solve.scan_bidiag_solve
 
+    def spy(*a, **kw):
+        seen.append(a[2].shape)
+        return orig(*a, **kw)
 
-@pytest.mark.parametrize("R", [1, 4])
-def test_fused_ldiv_bf16_stream(rng, R):
-    """bf16 L/U stream (VERDICT r3 #4): the fused solve with half-width
-    tile pages must match the f32 XLA engine to bf16 tile precision, and
-    one f64-residual refinement sweep restores full accuracy."""
-    import scipy.sparse.linalg as spla
-
-    A = poisson_2d(10, 8)
-    n = A.shape[0]
+    monkeypatch.setattr(jax, "default_backend", lambda: "gpu")
+    monkeypatch.setattr(scan_solve, "scan_bidiag_solve", spy)
+    A = laplacian_1d(300)
     F = ParallelSparseLU(A, config=SolverConfig(
-        chunk_size=8, tri_mode="inv", dtype="float32",
-        stream_dtype="bfloat16"))
-    b = jnp.asarray(rng.random((n, R)), dtype=jnp.float32)
-    ops, s_perm, s_lu = _build_ops(F)
-    assert s_lu.dtype == jnp.bfloat16  # the stream is actually half-width
-    xw = block_rhs(b, F.n, F._K_in, F.plan.cs) * F._rs_blk
-    got = np.asarray(unblock_rhs(
-        pallas_fused_ldiv(ops, s_perm, s_lu, xw, interpret=True), F.n))
-    want = spla.spsolve(A.tocsc(), np.asarray(b)).reshape(n, R)
-    rel = np.linalg.norm(got - want) / np.linalg.norm(want)
-    assert rel < 3e-2, f"bf16 direct solve rel err {rel}"  # ~8-bit tiles
-    assert rel > 1e-6  # sanity: the stream really was quantized
+        chunk_size=128, ordering="natural", pivot_threshold=0.0))
+    assert F._scan_bands is not None and F._scan_perm_id
+    b = rng.random(300)
+    x = np.asarray(F.ldiv(b))
+    assert seen and all(shape[1] == 1 for shape in seen)
+    import scipy.sparse.linalg as spla
 
-    # f64-residual IR sweeps THROUGH the bf16 fused kernel recover well
-    # past f32 accuracy (the production pairing: stream_dtype="bfloat16"
-    # + make_f64_ldiv / refine_steps)
-    def bf16_solve(v64):
-        vw = block_rhs(jnp.asarray(v64, jnp.float32),
-                       F.n, F._K_in, F.plan.cs) * F._rs_blk
-        out = pallas_fused_ldiv(ops, s_perm, s_lu, vw, interpret=True)
-        return np.asarray(unblock_rhs(out, F.n), dtype=np.float64)
-
-    b64 = np.asarray(b, np.float64)
-    x = got.astype(np.float64)
-    for _ in range(4):
-        x = x + bf16_solve(b64 - A @ x)
-    rel2 = np.linalg.norm(x - want) / np.linalg.norm(want)
-    # contraction ~kappa*eps_bf16 per sweep (slower than the f32 tier's,
-    # which reaches 1e-13 in one sweep); 4 sweeps land far below f32
-    assert rel2 < 1e-11, f"bf16+IR rel err {rel2}"
+    np.testing.assert_allclose(x, spla.spsolve(A.tocsc(), b),
+                               rtol=1e-10, atol=1e-12)

@@ -202,23 +202,20 @@ def test_fused_step_in_step_refinement(rng):
 def test_refactor_pivot_move_same_pattern_fused(rng):
     """Regression (round-2 VERDICT confirmed hazard): a NON-reallocating
     host refactor() that moves pivots under an identical L/U pattern
-    signature must invalidate the cached fused-op-stream ldiv executable.
+    signature must invalidate every cached ldiv executable and
+    permutation plan.
 
     Dense matrices keep the L/U patterns full for ANY pivot order, so the
     signature never changes; the first matrix is diagonally dominant
-    (identity row pivots → only diagonal perm-tile pairs in the fused op
-    stream), the second is generic (pivots cross the chunk boundary →
-    more perm pairs, a structurally different stream). Pre-fix, the
-    cached executable closed over the OLD stream schedule and misrouted
-    the NEW tile streams (observed residual ~0.8)."""
+    (identity row pivots), the second is generic (pivots cross the chunk
+    boundary). A solve that kept the OLD permutation would misroute the
+    NEW factors (observed residual ~0.8 when this was broken)."""
     rng2 = np.random.default_rng(3)
     n = 256
     A1 = sp.csc_matrix(np.eye(n) * 50.0 + rng2.random((n, n)))
     A2 = sp.csc_matrix(rng2.random((n, n)) + np.eye(n))
-    cfg = SolverConfig(chunk_size=128, tri_mode="inv", dtype="float32",
-                       use_pallas="always")  # TPU-shaped path, interpreted
+    cfg = SolverConfig(chunk_size=128, tri_mode="inv", dtype="float32")
     F = ParallelSparseLU(A1, config=cfg)
-    assert F._ldiv_ops is not None
     sig = F._factors.pattern_signature()
     p1 = F.p.copy()
     b = rng.random((n, 4))
@@ -235,7 +232,7 @@ def test_refactor_pivot_move_same_pattern_fused(rng):
 
     x2 = np.asarray(F.ldiv(b))
     r = np.linalg.norm(A2 @ x2 - b) / np.linalg.norm(b)
-    assert r < 1e-3, f"stale fused-op-stream closure: residual {r}"
+    assert r < 1e-3, f"stale ldiv closure: residual {r}"
 
 
 def test_refactor_solve_step_stale_after_host_refactor(rng):
@@ -253,24 +250,6 @@ def test_refactor_solve_step_stale_after_host_refactor(rng):
     # a fresh step works
     step2 = F.make_refactor_solve_step()
     np.asarray(step2(A.data, b))
-
-
-def test_lu_tile_interpret_matches_reference(rng):
-    """Pallas batched dense-tile LU (ops/pallas_factor.py) against the
-    XLA rank-1 loop reference, in interpret mode so CI covers the TPU
-    elimination kernel (round-2 VERDICT item 9)."""
-    import jax.numpy as jnp
-
-    from tpu_sparse_lu.ops.pallas_factor import lu_tile
-    from tpu_sparse_lu.refactor import _lu_nopivot
-
-    cs, batch = 128, 3
-    D = rng.standard_normal((batch, cs, cs))
-    D += cs * np.eye(cs)  # diagonally dominant: no-pivot LU is stable
-    D = jnp.asarray(D, dtype=jnp.float32)
-    got = np.asarray(lu_tile(D, interpret=True))
-    want = np.asarray(_lu_nopivot(D))
-    assert_isapprox(got, want, rtol=1e-5, atol=1e-5)
 
 
 @pytest.mark.parametrize(
@@ -328,106 +307,6 @@ def test_windowed_assembly_matches_dense_reference(rng, make, cs):
     assert_isapprox(tiles[TF], np.eye(cs, dtype=np.float32),
                     rtol=0, atol=0)
     assert not tiles[TF + 1].any()
-
-
-def test_fused_elimination_matches_xla(rng):
-    """ops/pallas_elim.py (interpret mode) against _blocked_elimination on
-    a real refactor plan: same factored store, pivot diagnostics, and
-    per-level inverse stacks."""
-    import jax.numpy as jnp
-
-    from tpu_sparse_lu import ParallelSparseLU, SolverConfig
-    from tpu_sparse_lu.assemble import assemble_windowed
-    from tpu_sparse_lu.models import block_banded
-    from tpu_sparse_lu.ops.pallas_elim import fused_elimination
-    from tpu_sparse_lu.refactor import _blocked_elimination
-
-    A = block_banded(rng, 24, 12)
-    F = ParallelSparseLU(A, config=SolverConfig(
-        chunk_size=16, tri_mode="inv", dtype="float32"))
-    F.enable_device_refactor()
-    rp = F._refactor_plan
-    dev = F._refactor_dev
-    cs = rp.cs
-    tiles, _ = assemble_windowed(
-        jnp.asarray(A.data, jnp.float32), dev, n=rp.n, cs=cs, TF=rp.TF,
-        TF2=rp.win.TF2, W=rp.win.W, R1=rp.win.R1, Np=rp.win.Np)
-    args = (dev["diag_ids"], dev["diag_cnt"], dev["row_ids"],
-            dev["row_owner"], dev["col_ids"], dev["col_owner"],
-            dev["schur"])
-    t_ref, mp_ref, li_ref, ui_ref = _blocked_elimination(tiles, *args, cs=cs)
-    NL, BL = dev["diag_ids"].shape
-    t_got, mp_got, li_got, ui_got = fused_elimination(
-        tiles, *args, cs=cs, NL=NL, BL=BL,
-        MR=dev["row_ids"].shape[1], MU=dev["col_ids"].shape[1],
-        MS=dev["schur"].shape[1], interpret=True)
-    # compare on REAL tiles only (the padded dummy slot accumulates
-    # schedule-dependent garbage by design in both implementations)
-    np.testing.assert_allclose(
-        np.asarray(t_got[:rp.TF]), np.asarray(t_ref[:rp.TF]),
-        rtol=2e-5, atol=1e-5)
-    np.testing.assert_allclose(float(mp_got), float(mp_ref), rtol=1e-5)
-    # real level slots only
-    cnt = np.asarray(dev["diag_cnt"])
-    for l in range(NL):
-        for b in range(int(cnt[l])):
-            np.testing.assert_allclose(
-                np.asarray(li_got[l, b]), np.asarray(li_ref[l, b]),
-                rtol=2e-5, atol=1e-5)
-            np.testing.assert_allclose(
-                np.asarray(ui_got[l, b]), np.asarray(ui_ref[l, b]),
-                rtol=2e-5, atol=1e-5)
-
-
-@pytest.mark.parametrize("make", [
-    lambda rng: block_banded(rng, 24, 12),
-    lambda rng: poisson_2d(14, 11),
-])
-def test_span_gather_matches_windowed(rng, make):
-    """The Pallas span-gather front-end (ops/pallas_span.py, interpret
-    mode) against the windowed XLA path on the same plan — banded
-    (no leftovers) and scattered (contested rows -> leftover scatter)."""
-    import jax.numpy as jnp
-
-    from tpu_sparse_lu import ParallelSparseLU, SolverConfig
-    from tpu_sparse_lu.models import block_banded, poisson_2d  # noqa: F401
-    from tpu_sparse_lu.ops.pallas_span import span_gather
-
-    A = make(rng)
-    F = ParallelSparseLU(A, config=SolverConfig(
-        chunk_size=16, tri_mode="inv", dtype="float32"))
-    F.enable_device_refactor()
-    rp = F._refactor_plan
-    dev = F._refactor_dev
-    cs = rp.cs
-    W, R1, Np, TF2 = rp.win.W, rp.win.R1, rp.win.Np, rp.win.TF2
-    a_data = jnp.asarray(A.data, jnp.float32)
-    nnz = int(a_data.shape[0])
-    n_rows = (TF2 + 1) * cs
-
-    # windowed reference
-    a_pad = jnp.pad(a_data, (W, Np - W - nnz))
-    a_big = jnp.concatenate(
-        [a_pad[s:s + R1 * W].reshape(R1, W) for s in range(W)], axis=0)
-    upd = jnp.take(a_big, dev["win_src"], axis=0, mode="clip")
-    upd = upd * dev["win_mask"].astype(jnp.float32)
-    M2 = (TF2 + 1) * cs * cs
-    st = jnp.zeros((M2 // W, W), jnp.float32).at[dev["win_dst"]].set(
-        upd, mode="drop", unique_indices=True)
-    want = st.reshape(n_rows, cs)
-    if dev["left_src"].shape[0]:
-        want = want.at[dev["left_row"], dev["left_col"]].set(
-            a_data[dev["left_src"]], mode="drop", unique_indices=True)
-
-    # span path (interpret)
-    Nq = nnz // cs + 3
-    a2 = jnp.pad(a_data, (cs, Nq * cs - cs - nnz)).reshape(Nq, cs)
-    got = span_gather(a2, dev["span_g"], dev["span_lo"], dev["span_hi"],
-                      n_rows=n_rows, interpret=True)
-    if dev["span_left_src"].shape[0]:
-        got = got.at[dev["span_left_row"], dev["span_left_col"]].set(
-            a_data[dev["span_left_src"]], mode="drop", unique_indices=True)
-    np.testing.assert_array_equal(np.asarray(got), np.asarray(want))
 
 
 def test_refactor_store_budget_guard(rng):

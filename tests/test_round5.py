@@ -1,4 +1,4 @@
-"""Round-5 features: tri_mode="auto" fast-path default, the
+"""Round-5 features: the backend policy behind tri_mode="auto", the
 make_f64_ldiv generation guard, factorize="device" (first factorization
 on device), and host-factor materialization after device
 refactorizations.
@@ -9,6 +9,7 @@ identity ``L @ U == (Rs .* A)[p, q]`` (src:292-316), and ``lu!`` keeping
 solves correct after refactorization (src:245-279).
 """
 
+import jax
 import numpy as np
 import pytest
 import scipy.sparse as sp
@@ -17,32 +18,63 @@ import scipy.sparse.linalg as spla
 from _approx import assert_isapprox
 from tpu_sparse_lu import ParallelSparseLU, SolverConfig
 from tpu_sparse_lu.models import fe_block_matrix, poisson_2d
-from tpu_sparse_lu.utils.config import default_chunk_size, resolve_tri_mode
+from tpu_sparse_lu.utils.config import backend_policy, default_chunk_size
 
 
 # ---------------------------------------------------------------------------
-# tri_mode="auto" / default fast path (VERDICT r4 #7)
+# backend policy: tri_mode="auto", chunk size, schedule, kernel choice
 # ---------------------------------------------------------------------------
 
 
-def test_tri_mode_auto_resolution():
-    """"auto" picks the fused-kernel-eligible mode on TPU, exact trsm
-    elsewhere; explicit modes pass through unchanged."""
-    assert resolve_tri_mode("auto", "tpu", np.float32) == "inv"
-    assert resolve_tri_mode("auto", "cpu", np.float64) == "trsm"
-    assert resolve_tri_mode("auto", "gpu", np.float32) == "trsm"
+def test_tri_mode_auto_resolution(rng):
+    """"auto" resolves to exact trsm on both supported backends; explicit
+    modes pass through the constructor unchanged."""
+    assert backend_policy("cpu").tri_mode == "trsm"
+    assert backend_policy("gpu").tri_mode == "trsm"
+    A = fe_block_matrix(rng, 4, 4)
     for m in ("trsm", "inv", "inv_refine"):
-        assert resolve_tri_mode(m, "tpu", np.float32) == m
+        F = ParallelSparseLU(A, config=SolverConfig(chunk_size=8,
+                                                    tri_mode=m))
+        assert F.config.tri_mode == m
 
 
-def test_default_chunk_size_backend():
-    """TPU default is 128 (the fused kernel's lane requirement) so the
-    no-config constructor lands on the fast path; CPU policy unchanged."""
-    assert default_chunk_size(10_000, "tpu") == 128
-    assert default_chunk_size(64, "tpu") == 64  # clamped to n
-    assert default_chunk_size(100, "cpu") == 8
-    assert default_chunk_size(1000, "cpu") == 32
-    assert default_chunk_size(10_000, "cpu") == 64
+def test_default_chunk_size_backend(rng, monkeypatch):
+    """The size-based chunk policy, clamped to n (reference src:67-72),
+    is what the solver picks on either backend."""
+    assert default_chunk_size(100) == 8
+    assert default_chunk_size(1000) == 32
+    assert default_chunk_size(10_000) == 64
+    assert default_chunk_size(5) == 5
+    A = fe_block_matrix(rng, 4, 4)
+    for backend in ("cpu", "gpu"):
+        monkeypatch.setattr(jax, "default_backend", lambda: backend)
+        F = ParallelSparseLU(A)
+        assert F.chunk_size == default_chunk_size(A.shape[0])
+
+
+@pytest.mark.parametrize("backend,scan_only,tile_lu", [
+    ("gpu", True, True),
+    ("cpu", False, False),
+])
+def test_backend_policy(backend, scan_only, tile_lu):
+    """One resolver decides every backend-dependent choice."""
+    pol = backend_policy(backend)
+    assert pol.backend == backend
+    assert pol.scan_only is scan_only
+    assert pol.tile_lu_kernel is tile_lu
+    # the tile-LU kernel takes power-of-two edges up to 128, f32 and f64
+    assert pol.use_tile_lu(128, np.float32) is tile_lu
+    assert pol.use_tile_lu(64, np.float64) is tile_lu
+    assert not pol.use_tile_lu(96, np.float32)
+    assert not pol.use_tile_lu(256, np.float32)
+    assert not pol.use_tile_lu(128, np.float16)
+
+
+def test_backend_policy_unknown_backend_raises():
+    with pytest.raises(ValueError, match="unsupported JAX backend"):
+        backend_policy("rocm")
+    with pytest.raises(ValueError, match="unsupported JAX backend"):
+        backend_policy("metal")
 
 
 def test_default_config_resolves_concrete_mode(rng):
@@ -258,37 +290,58 @@ def test_save_light_from_host_solver(rng, tmp_path):
                     spla.spsolve(A2.tocsc(), b), rtol=1e-4, atol=1e-5)
 
 
-def test_span_gather_smem_gate():
-    """supports_span_gather bounds the scalar-prefetch schedules against
-    the 1 MB SMEM space (measured v5e failure at n=40k nd: 3 x 924 KB
-    prefetched scalars -> 'Used 2.71M of 1.00M smem'). Oversized
-    assemblies must route to the windowed XLA fallback."""
-    from tpu_sparse_lu.ops.pallas_span import supports_span_gather
-
-    # small schedules fit (interpret mode bypasses the backend check)
-    assert supports_span_gather(4096, 64 * 128, 128, interpret=True)
-    # the measured failing size: n_rows=235776 -> 2.77 MB of scalars
-    assert not supports_span_gather(235776, 64 * 128, 128, interpret=True)
-
-
 def test_light_save_preserves_config(rng, tmp_path):
     """The reload reconstructs the solver from the persisted config —
-    stream dtype, factorize mode, nd cutoff, chunk size all survive the
-    light roundtrip (a dropped config field would silently rebuild the
-    solver with defaults)."""
+    tri mode, matmul precision, factorize mode, nd cutoff, chunk size all
+    survive the light roundtrip (a dropped config field would silently
+    rebuild the solver with defaults)."""
     A = poisson_2d(12, 12)
     F = ParallelSparseLU(A, config=SolverConfig(
-        chunk_size=16, ordering="nd", factorize="device",
-        stream_dtype="bfloat16", nd_cutoff=32))
+        chunk_size=16, ordering="nd", factorize="device", tri_mode="inv",
+        matmul_precision="high", nd_cutoff=32))
     path = str(tmp_path / "cfg.npz")
     F.save(path)
     assert "light" in np.load(path).files
     G = ParallelSparseLU.from_saved(A, path)
-    assert G.config.stream_dtype == "bfloat16"
+    assert G.config == F.config
+    assert G.config.tri_mode == "inv"
+    assert G.config.matmul_precision == "high"
     assert G.config.factorize == "device"
     assert G._nd_cutoff == F._nd_cutoff
     assert G.chunk_size == F.chunk_size
-    assert str(G._stream_dt) == "bfloat16"
+
+
+@pytest.mark.parametrize("light", [True, False])
+def test_load_file_with_removed_fields(rng, tmp_path, light):
+    """Files written before the fused-stream fields were removed carry
+    ``stream_dtype`` / ``use_pallas`` in their config and, for light
+    saves, span-gather arrays in the window plan: the loader ignores
+    them. The old file is built here from a current save's dict."""
+    import json
+
+    A = poisson_2d(12, 12)
+    F = ParallelSparseLU(A, config=SolverConfig(
+        chunk_size=16, ordering="nd", dtype="float32", tri_mode="inv",
+        factorize="device" if light else "host"))
+    path = str(tmp_path / "new.npz")
+    F.save(path)
+    flat = dict(np.load(path))
+    assert ("light" in flat) is light
+    cfg = json.loads(bytes(flat["config_json"]).decode())
+    cfg.update(stream_dtype="bfloat16", use_pallas="auto")
+    flat["config_json"] = np.frombuffer(json.dumps(cfg).encode(),
+                                        dtype=np.uint8)
+    if light:
+        for name in ("span_g", "span_lo", "span_hi", "span_left_src",
+                     "span_left_row", "span_left_col"):
+            flat[f"rpw_{name}"] = np.zeros(4, np.int32)
+    old = str(tmp_path / "old.npz")
+    np.savez(old, **flat)
+    G = ParallelSparseLU.from_saved(A, old)
+    assert G.config == F.config
+    b = rng.random(A.shape[0])
+    assert_isapprox(np.asarray(G.ldiv(b, refine_steps=1), dtype=np.float64),
+                    spla.spsolve(A.tocsc(), b), rtol=1e-4, atol=1e-5)
 
 
 def test_save_values_at_working_precision(rng, tmp_path):

@@ -28,7 +28,7 @@ def test_scan_ldiv_matches_spsolve(rng, n):
     A, F = _chain_F(n)
     assert F._scan_bands is not None and F._scan_perm_id
     b = rng.random(n)
-    x = np.asarray(F.ldiv(b))  # R=1: Pallas PCR kernel (interpret on CPU)
+    x = np.asarray(F.ldiv(b))  # R=1: associative_scan path
     xr = spla.spsolve(A.tocsc(), b)
     np.testing.assert_allclose(x, xr, rtol=1e-10, atol=1e-12)
     b3 = rng.random((n, 3))

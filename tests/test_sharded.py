@@ -1,9 +1,10 @@
 """Mesh-sharded solve tests on a simulated 8-device CPU mesh
-(SURVEY.md §4: the CI analogue of multi-chip TPU)."""
+(SURVEY.md §4: the CI analogue of a multi-GPU host)."""
 
 import jax
 import numpy as np
 import pytest
+import scipy.sparse as sp
 import scipy.sparse.linalg as spla
 
 from _approx import assert_isapprox
@@ -94,6 +95,55 @@ def test_dp_multi_rhs_sharding(rng):
     X = np.asarray(solve(B))
     X1 = np.asarray(F.ldiv(B))
     np.testing.assert_allclose(X, X1, rtol=1e-13, atol=1e-13)
+
+
+@pytest.mark.parametrize("engine", ["sharded", "dp", "pipeline"])
+@pytest.mark.parametrize("how", ["device", "host"])
+def test_mesh_solver_follows_refactor(rng, engine, how):
+    """A mesh solver built once keeps solving the CURRENT matrix after
+    each refactorization (the time-stepper pattern: build the mesh
+    solver once, refactor every step)."""
+    from tpu_sparse_lu.parallel.dp import make_dp_ldiv
+    from tpu_sparse_lu.parallel.pipeline_solve import make_pipeline_ldiv
+
+    A = laplacian_1d(96)
+    F = ParallelSparseLU(A, chunk_size=8)
+    mesh = make_mesh(4)
+    solve = {"sharded": make_sharded_ldiv, "dp": make_dp_ldiv,
+             "pipeline": make_pipeline_ldiv}[engine](F, mesh)
+    assert solve is not None
+    B = rng.random((96, 4))
+    np.testing.assert_allclose(np.asarray(solve(B)), np.asarray(F.ldiv(B)),
+                               rtol=1e-13, atol=1e-13)
+    for _ in range(2):
+        if how == "device":
+            A2 = A.copy()
+            A2.data = A2.data * (
+                1.0 + 0.05 * rng.standard_normal(A2.data.shape))
+            F.refactor_numeric(A2)
+        else:
+            # a heavier diagonal keeps SuperLU's pivots, hence the pattern
+            A2 = (A + sp.diags(0.5 * rng.random(96))).tocsc()
+            F.refactor(A2)
+        X = np.asarray(solve(B))
+        np.testing.assert_allclose(X, np.asarray(F.ldiv(B)),
+                                   rtol=1e-13, atol=1e-13)
+        for j in range(4):
+            assert_isapprox(X[:, j], spla.spsolve(A2.tocsc(), B[:, j]),
+                            rtol=1e-9, atol=1e-9)
+
+
+def test_mesh_solver_refuses_changed_pattern(rng):
+    """A host refactorization that changes the pattern replaces the plan
+    the mesh solver baked in: the old solver refuses loudly."""
+    A =laplacian_1d(64)
+    F = ParallelSparseLU(A, chunk_size=8)
+    solve = make_sharded_ldiv(F, make_mesh(2))
+    b = rng.random(64)
+    solve(b)
+    F.refactor(A + sp.diags([0.1 * np.ones(62)], [2], shape=A.shape))
+    with pytest.raises(RuntimeError, match="pattern changed"):
+        solve(b)
 
 
 @pytest.mark.parametrize("ndev", [2, 8])

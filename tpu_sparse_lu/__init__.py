@@ -1,12 +1,12 @@
-"""tpu-sparse-lu: a TPU-native sparse LU factorization + triangular-solve
-library with the capabilities of SharedMemSparseLU.jl.
+"""tpu-sparse-lu: a GPU sparse LU factorization + triangular-solve library
+(JAX) with the capabilities of SharedMemSparseLU.jl.
 
 Public API (reference parity, SURVEY.md §2):
 
 * :class:`ParallelSparseLU` — factor once, solve many, refactor in place.
 * :func:`cleanup_ParallelSparseLU` — buffer release (reference export, src:31).
-* :func:`allocate_shared` — mesh-sharded HBM array allocation, the
-  TPU-native analogue of the reference's MPI shared-memory window export.
+* :func:`allocate_shared` — mesh-sharded device array allocation, the
+  analogue of the reference's MPI shared-memory window export.
 * Symbolic layer: :func:`factorize_host`, :class:`SymbolicPlan`.
 """
 

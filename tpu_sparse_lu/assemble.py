@@ -1,40 +1,24 @@
 """Windowed tile-store assembly for the device refactorization.
 
-The refactorization's input assembly — scatter A's nonzeros into the
-merged dense tile store as ``(Rs·A)[p, q]`` — was the single most
-expensive phase of the fused refactor+solve step: a flat per-element
-scatter costs ~4.8 ns/element on v5e (serialized index processing), 2.0
-ms of a 3.2 ms step at 322k nnz (BASELINE config 2).
+The refactorization's input assembly scatters A's nonzeros into the
+merged dense tile store as ``(Rs·A)[p, q]``. A flat per-element scatter
+processes one index per nonzero; this module moves whole rows instead,
+in vectorized stages built on three facts:
 
-Measured device facts this module is built on (v5e, slope-timed):
-
-* scatter / gather of W-wide ROWS of a 2-D array costs ~5-9 ns per ROW,
-  essentially independent of W (8..128) — 4.5-90x cheaper per element
-  than flat scatter;
 * CSC nonzeros of one column are stored consecutively, and consecutive
   rows within a column land at consecutive flat positions of a
   TRANSPOSED tile layout ``(tile, col, row)`` — but only if rows are NOT
   permuted (the pivot permutation scrambles runs);
-* a row permutation of a blocked store is itself a static row GATHER
-  (~6 ns per 128-wide row).
+* so the value stream splits into maximal runs (consecutive destination
+  AND source positions) that move as W-wide rows;
+* a row permutation of a blocked store is itself a static row GATHER.
 
-So the assembly runs in vectorized stages instead of one flat scatter:
+Stages:
 
-1. **Unpermuted transposed store build** — two interchangeable
-   front-ends over the same host-planned maximal runs (consecutive dest
-   AND source positions):
-   * the Pallas **span-gather** kernel (ops/pallas_span.py; round 3):
-     each store row (one tile column) is one contiguous value span
-     fetched with a dynamic two-row read + lane roll, rows emitted in
-     order so no scatter exists at all (~20-25 ns/row; used when the
-     value stream fits VMEM);
-   * the **windowed XLA** path: W-wide source rows gathered from a
-     W-shifted replication of ``a_data`` and row-scattered into the
-     store (the general fallback — row ops cost ~10-17 ns per row
-     regardless of W, measured, so the Pallas path's cs-wide rows are
-     ~8x fewer).
-   Elements not covered (multiple runs colliding in one dest row)
-   fall back to a flat per-element scatter on top in either path.
+1. **Unpermuted transposed store build** — W-wide source rows gathered
+   from a W-shifted replication of ``a_data`` and row-scattered into the
+   store. Elements not covered (multiple runs colliding in one dest row)
+   fall back to a flat per-element scatter on top.
 2. **Equilibration** on the unpermuted store: per-row max reduces along
    the transposed store's minor axis (dense, vectorized), block-row
    combine via a tiny (K, MT, cs) gather — and Rs comes out directly in
@@ -47,7 +31,7 @@ So the assembly runs in vectorized stages instead of one flat scatter:
 
 Mirrors the semantics of UMFPACK's per-``lu!`` row-scaling recompute
 (reference src/SharedMemSparseLU.jl:263) and the packer's scatter
-(src:180-243), re-shaped for TPU's fast paths.
+(src:180-243).
 """
 
 from __future__ import annotations
@@ -83,23 +67,13 @@ class WindowPlan:
     # leftover / constant-1.0 destinations as (row, col) pairs into the
     # ((TF2+1)*cs, cs) row view of the transposed store: FLAT positions
     # can exceed int32 at large n and jnp.asarray would silently truncate
-    # int64 when x64 is off (the TPU default) — rows and cols never can.
+    # int64 when x64 is off (the JAX default) — rows and cols never can.
     # (ones = nd-embedding identity entries, scattered BEFORE the
     # equilibration so they are scaled like values.)
     left_row: np.ndarray  # (Lf,)
     left_col: np.ndarray  # (Lf,)
     ones_row: np.ndarray  # (Of,)
     ones_col: np.ndarray  # (Of,)
-    # span-gather fast path (ops/pallas_span.py): per store row of the
-    # transposed store, the value-stream span start (g, into the
-    # front-padded stream), its covered lane range [lo, hi), and the
-    # per-element leftovers of contested rows
-    span_g: np.ndarray       # (n_rows_pad,) int32
-    span_lo: np.ndarray      # (n_rows_pad,) int32
-    span_hi: np.ndarray      # (n_rows_pad,) int32
-    span_left_src: np.ndarray
-    span_left_row: np.ndarray
-    span_left_col: np.ndarray
     brow2_tiles: np.ndarray  # (K, MT2) tile ids per block row (pad = TF2)
     tile_brow2: np.ndarray   # (TF2+1,) block row of each tile
     permrow_src: np.ndarray  # ((TF+2)*cs,) row-permutation gather map
@@ -129,8 +103,8 @@ def plan_windowed_assembly(
     ``data_src`` (optional, len = pattern nnz) maps each pattern nonzero
     to its index in the runtime value stream, with -1 meaning a constant
     1.0 (the nd embedding's identity entries). Folding this mapping into
-    the window schedule removes the per-element gather the nd path used
-    to pay (2.25 ms at 322k nnz, measured — data_src has ~95-long runs).
+    the window schedule removes a per-element gather (data_src has long
+    runs: ~95 on the nd Poisson embedding).
     """
     A = sp.csc_matrix(A_pattern)
     n = A.shape[0]
@@ -217,50 +191,6 @@ def plan_windowed_assembly(
     if (TF2 + 1) * cs * cs // W >= 2**31:
         raise ValueError("window store exceeds int32 rows")
 
-    # --- span plan (Pallas span-gather fast path, ops/pallas_span.py) ------
-    # the same winner-takes-the-row contest at width cs: each store row is
-    # one (tile, column) pair whose tile-rows are a contiguous CSC run for
-    # banded patterns, so the kernel's in-order output IS the store and
-    # the scatter disappears. Contested rows' losers go to the span
-    # leftover scatter.
-    from .ops.pallas_span import PR
-
-    n_rows = (TF2 + 1) * cs
-    rf_c = run_d0 // cs
-    rl_c = (run_d0 + run_len - 1) // cs
-    cnt_c = rl_c - rf_c + 1
-    tot_c = int(cnt_c.sum())
-    cand_c = np.repeat(np.arange(nruns), cnt_c)
-    off_c = (np.arange(tot_c, dtype=np.int64)
-             - np.repeat(np.cumsum(cnt_c) - cnt_c, cnt_c))
-    srow = rf_c[cand_c] + off_c
-    lo_c = np.maximum(run_d0[cand_c], srow * cs)
-    hi_c = np.minimum(run_d0[cand_c] + run_len[cand_c], (srow + 1) * cs)
-    ordr_c = np.lexsort((lo_c - hi_c, srow))
-    first_c = np.ones(tot_c, dtype=bool)
-    ss = srow[ordr_c]
-    if tot_c > 1:
-        first_c[1:] = ss[1:] != ss[:-1]
-    sel_c = ordr_c[first_c]
-    n_rows_pad = -(-n_rows // PR) * PR
-    span_g = np.zeros(n_rows_pad, dtype=np.int32)
-    span_lo = np.zeros(n_rows_pad, dtype=np.int32)
-    span_hi = np.zeros(n_rows_pad, dtype=np.int32)
-    w_rows = srow[sel_c]
-    w_runs = cand_c[sel_c]
-    # out[row, lane] = a2.flat[g + lane]; one cs-wide front pad row
-    span_g[w_rows] = (cs + run_s0[w_runs] + w_rows * cs
-                      - run_d0[w_runs]).astype(np.int32)
-    span_lo[w_rows] = (lo_c[sel_c] - w_rows * cs).astype(np.int32)
-    span_hi[w_rows] = (hi_c[sel_c] - w_rows * cs).astype(np.int32)
-    if len(w_rows):
-        pos_c = np.searchsorted(w_rows, destT // cs)
-        cov_c = rid == w_runs[np.minimum(pos_c, len(w_runs) - 1)]
-    else:
-        cov_c = np.zeros(ne, dtype=bool)
-    span_left_src = src[~cov_c].astype(np.int32)
-    span_left = destT[~cov_c]
-
     # --- equilibration maps (unpermuted grid) ------------------------------
     browt: list = [[] for _ in range(K)]
     for t, key in enumerate(uk):
@@ -302,12 +232,6 @@ def plan_windowed_assembly(
         left_col=(left_dst % cs).astype(np.int32),
         ones_row=(ones_dst // cs).astype(np.int32),
         ones_col=(ones_dst % cs).astype(np.int32),
-        span_g=span_g,
-        span_lo=span_lo,
-        span_hi=span_hi,
-        span_left_src=span_left_src,
-        span_left_row=(span_left // cs).astype(np.int32),
-        span_left_col=(span_left % cs).astype(np.int32),
         brow2_tiles=brow2_tiles,
         tile_brow2=tile_brow2,
         permrow_src=permrow_src,
@@ -319,49 +243,29 @@ def plan_windowed_assembly(
 def assemble_windowed(a_data, dev, *, n: int, cs: int, TF: int,
                       TF2: int, W: int, R1: int, Np: int):
     """Device assembly: a_data (factor-pattern CSC order) → permuted,
-    equilibrated tile store (TF+2, cs, cs) + Rs in original row order.
-
-    Two interchangeable front-ends build the unpermuted transposed store:
-    the Pallas span-gather (ops/pallas_span.py — emits store rows in
-    order, no scatter, ~20 ns/row) when the value stream fits VMEM and a
-    TPU is present, else the windowed XLA gather+scatter."""
-    from .ops.pallas_span import span_gather, supports_span_gather
-
+    equilibrated tile store (TF+2, cs, cs) + Rs in original row order."""
     dt = a_data.dtype
     nnz = a_data.shape[0]
     n_rows = (TF2 + 1) * cs
-    Nq = nnz // cs + 3  # front pad row + ceil + back pad row
-    if supports_span_gather(n_rows, Nq * cs, cs):
-        a2 = jnp.pad(a_data, (cs, Nq * cs - cs - nnz)).reshape(Nq, cs)
-        rows2v = span_gather(
-            a2, dev["span_g"], dev["span_lo"], dev["span_hi"],
-            n_rows=n_rows,
+    # W shifted views of the zero-padded value stream: row (s*R1 + k)
+    # holds a_pad[s + k*W : s + k*W + W], so ANY W-span is one row
+    a_pad = jnp.pad(a_data, (W, Np - W - nnz))
+    a_big = jnp.concatenate(
+        [a_pad[s:s + R1 * W].reshape(R1, W) for s in range(W)], axis=0
+    )
+    upd = jnp.take(a_big, dev["win_src"], axis=0, mode="clip")
+    upd = upd * dev["win_mask"].astype(dt)
+    M2 = (TF2 + 1) * cs * cs
+    st = jnp.zeros((M2 // W, W), dt).at[dev["win_dst"]].set(
+        upd, mode="drop", unique_indices=True
+    )
+    # leftover / identity destinations index the ((TF2+1)*cs, cs) row
+    # view as (row, col) pairs — flat positions could exceed int32
+    rows2v = st.reshape(n_rows, cs)
+    if dev["left_src"].shape[0]:
+        rows2v = rows2v.at[dev["left_row"], dev["left_col"]].set(
+            a_data[dev["left_src"]], mode="drop", unique_indices=True
         )
-        if dev["span_left_src"].shape[0]:
-            rows2v = rows2v.at[
-                dev["span_left_row"], dev["span_left_col"]
-            ].set(a_data[dev["span_left_src"]], mode="drop",
-                  unique_indices=True)
-    else:
-        # W shifted views of the zero-padded value stream: row (s*R1 + k)
-        # holds a_pad[s + k*W : s + k*W + W], so ANY W-span is one row
-        a_pad = jnp.pad(a_data, (W, Np - W - nnz))
-        a_big = jnp.concatenate(
-            [a_pad[s:s + R1 * W].reshape(R1, W) for s in range(W)], axis=0
-        )
-        upd = jnp.take(a_big, dev["win_src"], axis=0, mode="clip")
-        upd = upd * dev["win_mask"].astype(dt)
-        M2 = (TF2 + 1) * cs * cs
-        st = jnp.zeros((M2 // W, W), dt).at[dev["win_dst"]].set(
-            upd, mode="drop", unique_indices=True
-        )
-        # leftover / identity destinations index the ((TF2+1)*cs, cs) row
-        # view as (row, col) pairs — flat positions could exceed int32
-        rows2v = st.reshape(n_rows, cs)
-        if dev["left_src"].shape[0]:
-            rows2v = rows2v.at[dev["left_row"], dev["left_col"]].set(
-                a_data[dev["left_src"]], mode="drop", unique_indices=True
-            )
     orow = dev["ones_row"]
     if orow.shape[0]:
         # nd-embedding identity entries: constant 1.0 values, placed

@@ -1,25 +1,15 @@
-"""Block-one-hot permutation apply (MXU-friendly vector permutation).
+"""Row permutation of the chunk-blocked carriers, as one row gather.
 
 The reference's ldiv applies a row permutation + scaling before the solves
-and a column un-permutation after (src/SharedMemSparseLU.jl:324-339) —
-O(n) pointer chasing on CPU. On TPU an arbitrary row-gather lowers to a
-serialized per-row loop (~130ns/row — measured 1.3ms for n=10k, more than
-an entire triangular solve), so instead we express the permutation as a
-block-sparse matrix of one-hot ``cs x cs`` tiles applied with one batched
-matmul:
+and a column un-permutation after (src/SharedMemSparseLU.jl:324-339). Here
+both act on the chunk-blocked carrier ``(K+1, cs, R)`` the solve engines
+use, so permute → lsolve → rsolve → unpermute chains with no layout
+changes. Row scaling ``Rs`` is a separate elementwise multiply, so a plan
+is value-independent (a refactorization changes Rs but never the plan).
 
-    out[k] = sum_s  T[k, s] @ v[src[k, s]]        (einsum, MXU)
-
-where dest chunk ``k`` draws from at most ``S`` source chunks. For banded
-matrices S == 1 (the permutation is block-local); for Poisson/COLAMD
-S ~ 17. Tiles are stored int8 (they are 0/1) and cast at use; row scaling
-``Rs[p]`` is applied as a separate elementwise multiply so tiles stay
-value-independent (a refactorization changes Rs but never the tiles).
-
-Operates directly on the chunk-blocked carrier ``(K+1, cs, R)`` used by
-the solve engines, so permute → lsolve → rsolve → unpermute chains with
-no layout changes. Falls back to a plain gather when S exceeds
-``max_fanin`` (hostile permutations would need K tiles per chunk).
+On the GPU a row gather is native: it beat the block-one-hot matmul
+formulation this module used to carry (see PERF.md), and it is exact at any
+matmul precision, where a one-hot product rounded to TF32 is not.
 """
 
 from __future__ import annotations
@@ -37,35 +27,30 @@ __all__ = ["PermPlan", "build_perm_plan", "apply_perm"]
 @jax.tree_util.register_pytree_node_class
 @dataclasses.dataclass
 class PermPlan:
-    """Static block-one-hot representation of ``out[i] = v[perm[i]]``.
+    """Static gather form of ``out[i] = v[perm[i]]`` on blocked carriers.
 
     Supports rectangular maps: the output carrier has ``K`` chunks while
-    sources index a carrier of ``K_in`` chunks (``K_in`` = dummy block).
-    ``perm[i] = -1`` rows produce zero (used by the nested-dissection
-    padding embedding)."""
+    sources index a carrier of ``K_in`` chunks. ``idx[i]`` is the source
+    row in the flat ``(K_in * cs, R)`` view of the input's real chunks;
+    rows with ``perm[i] = -1`` (the nested-dissection padding embedding)
+    and output rows past n hold the out-of-range index ``K_in * cs`` and
+    read zero."""
 
     K: int
     cs: int
-    S: int
     K_in: int
-    src: jax.Array    # (K, S) int32 source chunk ids, K_in = dummy (zeros)
-    tiles: jax.Array  # (K, S, cs, cs) int8 one-hot
-    # None, or the original index map for the gather fallback
-    gather_idx: Optional[jax.Array] = None
+    idx: jax.Array  # (K * cs,) int32
 
     def tree_flatten(self):
-        return ((self.src, self.tiles, self.gather_idx),
-                (self.K, self.cs, self.S, self.K_in))
+        return (self.idx,), (self.K, self.cs, self.K_in)
 
     @classmethod
     def tree_unflatten(cls, aux, children):
-        return cls(aux[0], aux[1], aux[2], aux[3], *children)
+        return cls(*aux, *children)
 
 
-def build_perm_plan(
-    perm: np.ndarray, n: int, cs: int, *, n_in: Optional[int] = None,
-    max_fanin: int = 128, max_tile_bytes: int = 512 * 1024 * 1024,
-) -> PermPlan:
+def build_perm_plan(perm: np.ndarray, n: int, cs: int, *,
+                    n_in: Optional[int] = None) -> PermPlan:
     """Build the plan for ``out[i] = v[perm[i]]`` on blocked carriers.
 
     ``perm`` has length n (output rows); sources index a vector of length
@@ -75,67 +60,18 @@ def build_perm_plan(
     n_in = n if n_in is None else n_in
     K_in = -(-n_in // cs)
     perm = np.asarray(perm, dtype=np.int64)
-    keep = perm >= 0
-    i = np.arange(n, dtype=np.int64)[keep]
-    pk_rows = perm[keep]
-    dst_chunk = i // cs
-    src_chunk = pk_rows // cs
-    # group source chunks per destination chunk
-    pairs = np.unique(dst_chunk * np.int64(K_in + 1) + src_chunk)
-    pk = pairs // (K_in + 1)
-    ps = pairs % (K_in + 1)
-    counts = np.bincount(pk, minlength=K)
-    S = max(1, int(counts.max()) if pairs.size else 1)
-    # int8 one-hot tiles beat the serialized TPU row-gather (~130ns/row)
-    # up to very high fan-in; cap on memory, not on S
-    if S > max_fanin or K * S * cs * cs > max_tile_bytes:
-        gidx = np.where(perm >= 0, perm, n_in).astype(np.int32)
-        return PermPlan(
-            K=K, cs=cs, S=S, K_in=K_in,
-            src=jnp.zeros((0,), jnp.int32),
-            tiles=jnp.zeros((0,), jnp.int8),
-            gather_idx=jnp.asarray(gidx),
-        )
-    src = np.full((K, S), K_in, dtype=np.int32)
-    slot_of = {}
-    fill = np.zeros(K, dtype=np.int64)
-    for a in range(pairs.shape[0]):
-        k, s = int(pk[a]), int(ps[a])
-        src[k, fill[k]] = s
-        slot_of[(k, s)] = fill[k]
-        fill[k] += 1
-    tiles = np.zeros((K, S, cs, cs), dtype=np.int8)
-    slot = np.array(
-        [slot_of[(int(k), int(s))] for k, s in zip(dst_chunk, src_chunk)],
-        dtype=np.int64,
-    )
-    tiles[dst_chunk, slot, i % cs, pk_rows % cs] = 1
-    return PermPlan(
-        K=K, cs=cs, S=S, K_in=K_in,
-        src=jnp.asarray(src),
-        tiles=jnp.asarray(tiles),
-        gather_idx=None,
-    )
+    idx = np.full(K * cs, K_in * cs, dtype=np.int32)
+    idx[:n] = np.where(perm >= 0, perm, K_in * cs)
+    return PermPlan(K=K, cs=cs, K_in=K_in, idx=jnp.asarray(idx))
 
 
 def apply_perm(plan: PermPlan, xw: jax.Array) -> jax.Array:
-    """Apply to chunk-blocked ``xw (K_in+1, cs, R)`` → ``(K+1, cs, R)``."""
+    """Apply to chunk-blocked ``xw (K_in+1, cs, R)`` → ``(K+1, cs, R)``
+    (the trailing dummy chunk of the result is zero)."""
     K, K_in, cs = plan.K, plan.K_in, plan.cs
     R = xw.shape[-1]
-    if plan.gather_idx is not None:
-        # hostile permutation: plain row gather on the flat view (index
-        # n_in = the zero row, provided by the dummy chunk)
-        flat = xw[:K_in + 1].reshape((K_in + 1) * cs, R)
-        out = flat[plan.gather_idx]
-        pad = K * cs - out.shape[0]
-        out = jnp.pad(out, ((0, pad + cs), (0, 0)))
-        return out.reshape(K + 1, cs, R)
-    gathered = xw[plan.src]                       # (K, S, cs, R)
-    t = plan.tiles.astype(xw.dtype)
-    out = jnp.einsum(
-        "ksij,ksjr->kir", t, gathered,
-        preferred_element_type=xw.dtype,
-    )
+    flat = xw[:K_in].reshape(K_in * cs, R)
+    out = jnp.take(flat, plan.idx, axis=0, mode="fill", fill_value=0)
     return jnp.concatenate(
-        [out, jnp.zeros((1, cs, R), xw.dtype)], axis=0
+        [out.reshape(K, cs, R), jnp.zeros((1, cs, R), xw.dtype)], axis=0
     )

@@ -7,13 +7,12 @@ forward/backward substitution is the first-order linear recurrence
 
     y_i = a_i * y_{i-1} + c_i
 
-which a serial CPU walks in O(n) but a TPU can evaluate in O(log n)
+which a serial CPU walks in O(n) but an accelerator can evaluate in O(log n)
 parallel depth: the affine maps ``(a, c)`` compose associatively,
 ``(a2, c2) ∘ (a1, c1) = (a1*a2, a2*c1 + c2)``, so the whole substitution
 is one ``lax.associative_scan`` of elementwise multiply-adds — exactly
 the parallel-cyclic-reduction shape the level-scheduled tile engine
-cannot reach (a chain's chunk DAG has no width to batch; measured 0.28x
-scipy through the tile path vs >1x through this one).
+cannot reach (a chain's chunk DAG has no width to batch).
 
 Stability: the composed prefix products ``prod a_i`` are exactly the
 multipliers a serial substitution applies successively; for factors from
@@ -23,23 +22,14 @@ the scan is as backward-stable as the serial loop in the same precision.
 
 from __future__ import annotations
 
-import functools
 from typing import Optional
 
-import jax
 import jax.numpy as jnp
 import numpy as np
 import scipy.sparse as sp
 from jax import lax
-from jax.experimental import pallas as pl
-from jax.experimental.pallas import tpu as pltpu
 
-__all__ = [
-    "bidiag_bands",
-    "scan_bidiag_solve",
-    "pack_bands_2d",
-    "pallas_bidiag_ldiv",
-]
+__all__ = ["bidiag_bands", "scan_bidiag_solve"]
 
 
 def bidiag_bands(M: sp.csc_matrix, *, lower: bool) -> Optional[dict]:
@@ -99,106 +89,3 @@ def scan_bidiag_solve(diag, off, b, *, lower: bool):
 
     _, y = lax.associative_scan(compose, (jnp.broadcast_to(a, c.shape), c))
     return y if lower else y[::-1]
-
-
-# ---------------------------------------------------------------------------
-# Fused Pallas kernel: scale → L-scan → U-scan in VMEM
-# ---------------------------------------------------------------------------
-#
-# ``lax.associative_scan`` spends ~15-25 µs per XLA op on stride-2 slice
-# relayouts — ~90 ops for n=20k, slower than the CPU's serial walk. This
-# kernel keeps everything in VMEM laid out ``(S, 128)`` row-major and runs
-# both Kogge-Stone prefix scans with shifts expressed as static pad+slice
-# concatenations (sublane moves for shifts >= 128, lane moves + row carry
-# below), so the whole single-RHS ldiv is one program of ~200 vector ops.
-
-LANE = 128
-
-
-def pack_bands_2d(v: np.ndarray, fill: float, S: int) -> np.ndarray:
-    """(n,) → (S, 128) row-major with `fill` padding (host-side prep)."""
-    n = v.shape[0]
-    out = np.full(S * LANE, fill, dtype=v.dtype)
-    out[:n] = v
-    return out.reshape(S, LANE)
-
-
-def _row_shift(X, k, fill):
-    """Shift rows down by k (k > 0) or up by -k, filling vacated rows."""
-    S = X.shape[0]
-    if abs(k) >= S:
-        return jnp.full_like(X, fill)
-    pad = jnp.full((abs(k), LANE), fill, X.dtype)
-    if k > 0:
-        return jnp.concatenate([pad, X[:-k]], axis=0)
-    return jnp.concatenate([X[-k:], pad], axis=0)
-
-
-def _lane_roll(X, d):
-    """Circular lane rotation by d (positive = right, like jnp.roll)."""
-    return pltpu.roll(X, d, 1)
-
-
-def _shift_down(X, d, fill):
-    """Value at flat index i becomes value from i-d (row-major (S,128));
-    out-of-range filled with `fill`. d is a static power of two."""
-    if d >= LANE:
-        return _row_shift(X, d // LANE, fill)
-    # rotate lanes right; lanes < d take the rotated value from the
-    # PREVIOUS row (full-row shift — Mosaic handles offset-0 concats)
-    rolled = _lane_roll(X, d)
-    prev = _row_shift(rolled, 1, fill)
-    lane = lax.broadcasted_iota(jnp.int32, X.shape, 1)
-    return jnp.where(lane >= d, rolled, prev)
-
-
-def _shift_up(X, d, fill):
-    """Value at flat index i becomes value from i+d."""
-    if d >= LANE:
-        return _row_shift(X, -(d // LANE), fill)
-    rolled = _lane_roll(X, -d % LANE)
-    nxt = _row_shift(rolled, -1, fill)
-    lane = lax.broadcasted_iota(jnp.int32, X.shape, 1)
-    return jnp.where(lane < LANE - d, rolled, nxt)
-
-
-def _kogge_stone(a, c, n, shift):
-    """Inclusive prefix composition of affine maps (a, c) along the flat
-    index, walking `shift` (down = forward scan / up = backward). Both
-    state planes live in vregs; a precomputed-multiplier variant (planes
-    streamed from a VMEM ref per stage) measured SLOWER on v5e — the ref
-    reads cost more than the saved multiplies."""
-    d = 1
-    while d < n:
-        a_s = shift(a, d, 1.0)
-        c_s = shift(c, d, 0.0)
-        c = a * c_s + c
-        a = a * a_s
-        d *= 2
-    return c
-
-
-def _ldiv_kernel(aL_ref, sL_ref, aU_ref, sU_ref, b_ref, out_ref, *, n):
-    # forward: y_i = aL_i y_{i-1} + (rs_i / ld_i) b_i
-    y = _kogge_stone(aL_ref[:], sL_ref[:] * b_ref[:], n, _shift_down)
-    # backward: x_i = aU_i x_{i+1} + y_i / ud_i
-    out_ref[:] = _kogge_stone(aU_ref[:], sU_ref[:] * y, n, _shift_up)
-
-
-@functools.partial(jax.jit, static_argnames=("n", "interpret"))
-def pallas_bidiag_ldiv(aL, sL, aU, sU, b2d, *, n: int,
-                       interpret: bool = False):
-    """Fused single-RHS bidiagonal ldiv. All inputs ``(S, 128)``:
-    ``aL = -lo/ld`` (index 0 zeroed by construction), ``sL = rs/ld``,
-    ``aU = -uo/ud`` (index n-1 zero), ``sU = 1/ud``, ``b2d`` the packed
-    RHS."""
-    from ..utils.x64 import x64_off_for
-
-    with x64_off_for(b2d.dtype):  # 32-bit trace for 4-byte kernels only
-        return pl.pallas_call(
-            functools.partial(_ldiv_kernel, n=n),
-            out_shape=jax.ShapeDtypeStruct(b2d.shape, b2d.dtype),
-            in_specs=[pl.BlockSpec(memory_space=pltpu.VMEM)] * 5,
-            out_specs=pl.BlockSpec(memory_space=pltpu.VMEM),
-            interpret=interpret,
-        )(aL, sL, aU, sU, b2d)

@@ -1,14 +1,15 @@
 """Block-tile SpMV: ``y = A @ x`` as batched dense-tile matmuls.
 
-The scatter-based SpMV (``zeros.at[rows].add(v * x[cols])``) serializes on
-TPU (~130ns per nonzero — an n=10k Poisson matvec costs more than the
-whole direct solve). This packs A itself into the same chunk-grid dense
-tile layout the solver uses: one gather + one batched MXU matmul + one
+A scatter-based SpMV (``zeros.at[rows].add(v * x[cols])``) processes one
+index per nonzero. This packs A itself into the same chunk-grid dense
+tile layout the solver uses: one gather + one batched matmul + one
 segment reduction per matvec.
 
 Used by iterative refinement (``ldiv(refine_steps=...)``) — the fp32+IR
-accuracy story on TPU (SURVEY.md §7 hard part 5) — and exposed as
-``ParallelSparseLU.matvec``.
+accuracy story (SURVEY.md §7 hard part 5) — and exposed as
+``ParallelSparseLU.matvec``. Residual products always run at full
+precision: a residual rounded to TF32 would cap what refinement can
+recover.
 """
 
 from __future__ import annotations
@@ -107,11 +108,10 @@ class DiaPlan:
     ``y[i] = sum_d data[d, i] * x[i + offsets[d]]`` (out-of-range reads
     are zero). For the banded/stencil matrices this library targets, a
     5-point Poisson has 5 diagonals and a block-banded PDE operator a few
-    dozen — so an f64 SpMV does O(nd * n) emulated-f64 flops instead of
-    the dense-tile plan's O(K * S * cs^2): the 128x128 tiles of a 5-point
-    stencil are ~2% nonzero, and XLA's f64 emulation pays for every zero
-    (measured v5e, n=10k R=16: tile einsum 1.23 ms vs 32 us for f32 —
-    the DIA form recovers the sparsity the tiles gave up).
+    dozen — so an f64 SpMV does O(nd * n) flops instead of the dense-tile
+    plan's O(K * S * cs^2): the 128x128 tiles of a 5-point stencil are
+    ~2% nonzero, and the DIA form recovers the sparsity the tiles gave
+    up.
     """
 
     n: int
@@ -168,6 +168,6 @@ def apply_spmv(plan: SpMVPlan, x: jax.Array) -> jax.Array:
     gathered = xw[plan.src]                    # (K, S, cs, R)
     y = jnp.einsum(
         "ksij,ksjr->kir", plan.tiles, gathered,
-        preferred_element_type=x.dtype,
+        preferred_element_type=x.dtype, precision=jax.lax.Precision.HIGHEST,
     )
     return y.reshape(K * cs, R)[:n]

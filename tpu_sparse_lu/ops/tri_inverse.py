@@ -1,6 +1,6 @@
-"""Triangular-tile inversion as batched matmuls (MXU-friendly, stable).
+"""Triangular-tile inversion as batched matmuls (stable).
 
-Sequential scalar substitution is hostile to the MXU, so tiles are
+Sequential scalar substitution leaves matmul hardware idle, so tiles are
 inverted by blocked recursion (the LAPACK ``trtri`` scheme):
 
     inv([[A, 0], [C, B]]) = [[inv(A), 0], [-inv(B) C inv(A), inv(B)]]

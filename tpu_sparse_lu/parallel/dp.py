@@ -14,30 +14,34 @@ import jax.numpy as jnp
 import numpy as np
 from jax.sharding import Mesh, NamedSharding, PartitionSpec as P
 
+from .mesh import replicated_factors
+
 __all__ = ["make_dp_ldiv"]
 
 
 def make_dp_ldiv(F, mesh: Mesh, axis: str = "chunks"):
     """Returns ``solve(b)`` with ``b: (n, R)`` sharded column-wise over the
-    mesh; ``R`` must be divisible by the mesh size. Factors replicated."""
+    mesh; ``R`` must be divisible by the mesh size. Factors replicated,
+    and copied again after a refactorization."""
     exe = F._exe("ldiv")
     rhs_sharding = NamedSharding(mesh, P(None, axis))
     rep = NamedSharding(mesh, P())
 
     fn = jax.jit(
-        lambda ldata, udata, pperm, qperm, rs_blk, s_perm, s_lu, b: exe(
-            ldata, udata, pperm, qperm, rs_blk, s_perm, s_lu, b
+        lambda ldata, udata, pperm, qperm, rs_blk, b: exe(
+            ldata, udata, pperm, qperm, rs_blk, b
         ),
-        in_shardings=(rep, rep, rep, rep, rep, rep, rep, rhs_sharding),
+        in_shardings=(rep, rep, rep, rep, rep, rhs_sharding),
         out_shardings=rhs_sharding,
     )
+
+    factors = replicated_factors(F, mesh)
 
     def solve(b):
         b = jnp.asarray(b, dtype=F.dtype)
         if b.ndim != 2:
             raise ValueError("dp ldiv expects an (n, R) panel")
         b = jax.device_put(b, rhs_sharding)
-        return fn(F.ldata, F.udata, F._pperm, F._qperm, F._rs_blk,
-                  F._ldiv_stream_perm, F._ldiv_stream_lu, b)
+        return fn(*factors(), b)
 
     return solve

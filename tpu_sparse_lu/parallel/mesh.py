@@ -2,8 +2,8 @@
 
 The reference's (latent) parallel substrate is MPI-3 shared-memory windows —
 exported as ``allocate_shared`` but never defined in the snapshot
-(/root/reference/src/SharedMemSparseLU.jl:31; SURVEY.md C10). The TPU-native
-equivalent of a node-shared window is an HBM-resident array sharded over a
+(/root/reference/src/SharedMemSparseLU.jl:31; SURVEY.md C10). The device
+equivalent of a node-shared window is a device-resident array sharded over a
 ``jax.sharding.Mesh``: one logical array, shards addressable by every
 program, with XLA collectives instead of window synchronisation
 (SURVEY.md §5.8).
@@ -23,6 +23,7 @@ __all__ = [
     "initialize_multihost",
     "make_global_mesh",
     "replicate_to_mesh",
+    "replicated_factors",
     "allocate_shared",
 ]
 
@@ -45,11 +46,11 @@ def initialize_multihost(
 
     Call once per process before any JAX computation; afterwards
     ``jax.devices()`` is the GLOBAL device list (all hosts) and
-    :func:`make_global_mesh` builds a mesh whose collectives ride ICI
-    within a slice and DCN across hosts. On TPU pods the arguments are
-    auto-detected from the environment (pass nothing); on CPU test
-    clusters pass them explicitly — CPU cross-process collectives use the
-    gloo transport (the CI analogue of the DCN path, SURVEY.md §5.8).
+    :func:`make_global_mesh` builds a mesh whose collectives cross hosts
+    over the cluster network. Pass the coordinator address, process count
+    and process id explicitly — nothing in the environment supplies them;
+    CPU cross-process collectives use the gloo transport (the CI analogue
+    of the multi-host path, SURVEY.md §5.8).
     """
     # NOTE: must not touch jax.default_backend() here — that would
     # initialize the backend before jax.distributed.initialize runs.
@@ -86,8 +87,6 @@ def replicate_to_mesh(tree, mesh: Mesh):
     "every rank maps the same shared-memory window" (SURVEY.md C10) —
     every process contributes its identical local copy.
     """
-    from jax.sharding import NamedSharding
-
     rep = NamedSharding(mesh, P())
 
     def put(x):
@@ -95,6 +94,36 @@ def replicate_to_mesh(tree, mesh: Mesh):
         return jax.make_array_from_callback(x.shape, rep, lambda idx: x[idx])
 
     return jax.tree.map(put, tree)
+
+
+def replicated_factors(F, mesh: Mesh, *, multihost: bool = False):
+    """Returns ``get()`` giving F's numeric state ``(ldata, udata, pperm,
+    qperm, rs_blk)`` replicated over ``mesh``, for the mesh solvers.
+
+    The copy is made once per numeric state: after a refactorization
+    (``F._generation`` moves on) the next ``get()`` copies F's new arrays,
+    so a solver built before ``refactor_numeric`` solves the new matrix. A
+    host refactorization that changes the sparsity pattern replaces
+    ``F.plan``, which the solvers bake in; ``get()`` then raises."""
+    plan = F.plan
+    cache = {}
+
+    def get():
+        if F.plan is not plan:
+            raise RuntimeError(
+                "the factor pattern changed since this mesh solver was "
+                "built; build it again"
+            )
+        if cache.get("gen") != F._generation:
+            args = (F.ldata, F.udata, F._pperm, F._qperm, F._rs_blk)
+            cache["args"] = (
+                replicate_to_mesh(args, mesh) if multihost
+                else jax.device_put(args, NamedSharding(mesh, P()))
+            )
+            cache["gen"] = F._generation
+        return cache["args"]
+
+    return get
 
 
 def allocate_shared(
@@ -106,9 +135,10 @@ def allocate_shared(
 ) -> jax.Array:
     """Allocate a zero array shared across the mesh.
 
-    TPU-native analogue of the reference's exported-but-undefined
+    Device analogue of the reference's exported-but-undefined
     ``allocate_shared`` (src:31): where MPI-3 would hand out a node-local
-    shared-memory window, this places one logical zero array in HBM with the
+    shared-memory window, this places one logical zero array in device
+    memory with the
     given ``NamedSharding`` (replicated by default — every chip "sees" the
     whole array, like ranks sharing a window).
     """

@@ -1,7 +1,7 @@
 """Halo-pipelined distributed triangular solves (SURVEY.md §5.7).
 
 The psum-based engine (sharded_solve.py) replicates the solution carrier —
-the TPU analogue of an MPI shared-memory *window*. This module is the
+the device analogue of an MPI shared-memory *window*. This module is the
 message-passing analogue for **banded** operators (BASELINE config 5:
 block-banded PDE matrix row-partitioned across hosts):
 
@@ -14,7 +14,7 @@ block-banded PDE matrix row-partitioned across hosts):
   the off-diagonal tiles whose source chunk is local but whose destination
   chunk is on the next device are applied locally and the accumulated
   contribution is sent with one ``lax.ppermute`` per round — communication
-  is nearest-neighbour ICI traffic, not a global collective;
+  is point-to-point traffic between neighbours, not a global collective;
 * the RHS panel is split into ``M`` micro-panels, software-pipelined: in
   round ``r`` device ``d`` processes micro-panel ``r - d``, so all devices
   work concurrently after the fill phase. Pipeline efficiency is
@@ -39,6 +39,7 @@ from jax.sharding import Mesh, PartitionSpec as P
 from jax import shard_map
 
 from ..solve import TriKernelData
+from .mesh import replicated_factors
 from ..symbolic import TriPlan
 
 __all__ = ["PipelinePlan", "build_pipeline_plan", "pipeline_tri_solve",
@@ -170,14 +171,13 @@ def autotune_micro_panels(R: int, D: int, *, cap: Optional[int] = None) -> int:
     Pipeline efficiency is ``M / (M + 2D - 1)`` — the fill/drain bubble is
     ``2D - 1`` rounds regardless of M, so more (thinner) panels amortize
     it better; the cost of thin panels (cs × R/M tile matmuls) is small
-    because each round is latency-bound, not MXU-bound. M must divide R
+    because each round is latency-bound, not matmul-bound. M must divide R
     (equal static panel widths), so take the largest divisor of R that is
     ≤ ``cap``. The default cap scales with the bubble: ``max(16, 4*(2D-1))``
     — at D ≤ 3 the old cap of 16 already gives ≥ 0.76 pipeline
     efficiency, while D ≥ 4 with wide panels (R ≥ 32) needs M > 16 to
     stay above the 70% bar (M=32 at D=4: 32/39 = 0.82 vs 16/23 = 0.70);
-    each extra round costs ~1 ICI-hop latency, which the efficiency
-    projection (bench._pipeline_scaling_proxy) charges honestly.
+    each extra round costs one more neighbour-exchange latency.
 
     ``R = 1`` (the reference's primary calling pattern, src:286) returns
     M=1: a banded chain is inherently serial across a contiguous row
@@ -335,65 +335,43 @@ def pipeline_tri_solve(
 
 @dataclasses.dataclass
 class ShardedPermPlan:
-    """Static owner-computes schedule for applying a block-one-hot
-    permutation to a chunk-SHARDED carrier (BASELINE north star: the
-    solution stays "partitioned by level-set blocks" — the reference's
-    latent design replicates via one MPI window, src:31).
+    """Static owner-computes schedule for applying a row permutation to a
+    chunk-SHARDED carrier (BASELINE north star: the solution stays
+    "partitioned by level-set blocks" — the reference's latent design
+    replicates via one MPI window, src:31).
 
-    Tiles are grouped by boundary crossing ``owner(dst) - owner(src)``
-    ∈ {0, +1, -1}: each device applies the tiles whose SOURCE chunk it
-    owns, accumulating per-direction partial buffers; the off-device
-    partials travel with one ``ppermute`` per used direction (the "one
-    boundary exchange"), never a global collective."""
+    Output rows are grouped by boundary crossing ``owner(dst) -
+    owner(src)`` ∈ {0, +1, -1}: each device gathers the rows whose SOURCE
+    it owns into per-direction buffers laid out like the receiving
+    device's output block; the off-device buffers travel with one
+    ``ppermute`` per used direction (the "one boundary exchange"), never
+    a global collective."""
 
     D: int
     Ko_l: int                # output chunks per device (padded)
-    tile_idx: np.ndarray     # (D, 3, MJ) flat tile id (K*S = zero tile)
-    src_slot: np.ndarray     # (D, 3, MJ) local slot in the sharded input
-    dst_slot: np.ndarray     # (D, 3, MJ) local slot in the output (Ko_l = dummy)
+    src_row: np.ndarray      # (D, 3, Ko_l*cs) local source row; Kl_src*cs = zero
     use_dir: tuple           # (stay, fwd, bwd) static usage flags
 
 
 def build_sharded_perm_plan(qperm, Kl_src: int, D: int):
-    """Schedule ``out[o] = Q @ x`` over a carrier sharded in ``Kl_src``
-    contiguous source chunks per device. None when a tile crosses more
-    than one device boundary (psum/replicated path instead)."""
-    if qperm.gather_idx is not None:
-        return None
-    src = np.asarray(qperm.src)          # (K_out, S)
-    K_out, S = src.shape
+    """Schedule ``out[o] = x[perm[o]]`` over a carrier sharded in
+    ``Kl_src`` contiguous source chunks per device. None when a row
+    crosses more than one device boundary (replicated path instead)."""
+    cs, K_out = qperm.cs, qperm.K
     Ko_l = -(-K_out // D)
-    items = [[[] for _ in range(3)] for _ in range(D)]  # [d][dir]
-    for o in range(K_out):
-        d_out = min(o // Ko_l, D - 1)
-        for s_ in range(S):
-            sc = int(src[o, s_])
-            if sc >= qperm.K_in:
-                continue
-            d_src = min(sc // Kl_src, D - 1)
-            delta = d_out - d_src
-            if abs(delta) > 1:
-                return None
-            items[d_src][delta % 3].append(  # 0: stay, 1: fwd, 2: bwd
-                (o * S + s_, sc - d_src * Kl_src, o - d_out * Ko_l)
-            )
-    MJ = max(1, max(len(x) for dd in items for x in dd))
-    zero_tile = K_out * S
-    tile_idx = np.full((D, 3, MJ), zero_tile, dtype=np.int32)
-    src_slot = np.zeros((D, 3, MJ), dtype=np.int32)
-    dst_slot = np.full((D, 3, MJ), Ko_l, dtype=np.int32)
-    for d in range(D):
-        for di in range(3):
-            for a, (t, ss, ds) in enumerate(items[d][di]):
-                tile_idx[d, di, a] = t
-                src_slot[d, di, a] = ss
-                dst_slot[d, di, a] = ds
-    use_dir = tuple(
-        any(len(items[d][di]) for d in range(D)) for di in range(3)
-    )
-    return ShardedPermPlan(D=D, Ko_l=Ko_l, tile_idx=tile_idx,
-                           src_slot=src_slot, dst_slot=dst_slot,
-                           use_dir=use_dir)
+    idx = np.asarray(qperm.idx, dtype=np.int64)
+    o = np.nonzero(idx < qperm.K_in * cs)[0]
+    src = idx[o]
+    d_out = np.minimum(o // cs // Ko_l, D - 1)
+    d_src = np.minimum(src // cs // Kl_src, D - 1)
+    delta = d_out - d_src
+    if np.any(np.abs(delta) > 1):
+        return None
+    src_row = np.full((D, 3, Ko_l * cs), Kl_src * cs, dtype=np.int32)
+    src_row[d_src, delta % 3, o - d_out * Ko_l * cs] = (
+        src - d_src * Kl_src * cs)
+    use_dir = tuple(bool(np.any(delta % 3 == di)) for di in range(3))
+    return ShardedPermPlan(D=D, Ko_l=Ko_l, src_row=src_row, use_dir=use_dir)
 
 
 def sharded_apply_perm(mesh: Mesh, axis: str, qperm, spp: ShardedPermPlan,
@@ -403,49 +381,36 @@ def sharded_apply_perm(mesh: Mesh, axis: str, qperm, spp: ShardedPermPlan,
     Communication: at most one ppermute per used boundary direction."""
     D, Ko_l = spp.D, spp.Ko_l
     cs = qperm.cs
-    tiles_flat = jnp.concatenate([
-        qperm.tiles.reshape(-1, cs, cs),
-        jnp.zeros((1, cs, cs), qperm.tiles.dtype),
-    ])
-    ti = jnp.asarray(spp.tile_idx)
-    ss = jnp.asarray(spp.src_slot)
-    ds = jnp.asarray(spp.dst_slot)
 
     @partial(
         shard_map, mesh=mesh,
-        in_specs=(P(axis), P(), P(axis), P(axis), P(axis)),
+        in_specs=(P(axis), P(axis)),
         out_specs=P(axis),
         check_vma=False,
     )
-    def go(x_me, tiles, ti_me, ss_me, ds_me):
+    def go(x_me, sr_me):
         R = x_me.shape[-1]
-        bufs = []
-        for di in range(3):
-            if not spp.use_dir[di]:
-                bufs.append(None)
-                continue
-            t = tiles[ti_me[0, di]].astype(x_me.dtype)   # (MJ, cs, cs)
-            xs = x_me[ss_me[0, di]]                      # (MJ, cs, R)
-            contrib = lax.dot_general(
-                t, xs, dimension_numbers=(((2,), (1,)), ((0,), (0,))),
-                preferred_element_type=x_me.dtype,
-            )
-            acc = jnp.zeros((Ko_l + 1, cs, R), x_me.dtype)
-            bufs.append(acc.at[ds_me[0, di]].add(contrib)[:Ko_l])
+        flat = x_me.reshape(-1, R)
+        bufs = [
+            jnp.take(flat, sr_me[0, di], axis=0, mode="fill",
+                     fill_value=0).reshape(Ko_l, cs, R)
+            if spp.use_dir[di] else None
+            for di in range(3)
+        ]
         out = bufs[0] if bufs[0] is not None else jnp.zeros(
-            (Ko_l, cs, x_me.shape[-1]), x_me.dtype
+            (Ko_l, cs, R), x_me.dtype
         )
-        if bufs[1] is not None:  # contributions for the NEXT device
+        if bufs[1] is not None:  # rows for the NEXT device
             out = out + lax.ppermute(
                 bufs[1], axis, [(i, i + 1) for i in range(D - 1)]
             )
-        if bufs[2] is not None:  # contributions for the PREVIOUS device
+        if bufs[2] is not None:  # rows for the PREVIOUS device
             out = out + lax.ppermute(
                 bufs[2], axis, [(i, i - 1) for i in range(1, D)]
             )
         return out
 
-    return go(x_loc, tiles_flat, ti, ss, ds)
+    return go(x_loc, jnp.asarray(spp.src_row))
 
 
 def make_pipeline_ldiv(F, mesh: Mesh, axis: str = "chunks",
@@ -479,7 +444,7 @@ def make_pipeline_ldiv(F, mesh: Mesh, axis: str = "chunks",
     tri_mode = F.config.tri_mode
     cs = plan.cs
     # input space may differ from factor space (ordering="nd" embedding);
-    # the rectangular PermPlans bridge the two
+    # the rectangular permutation plans bridge the two
     n_in, K_in = F._n_orig, F._K_in
     prec = F.config.matmul_precision
     spp = None
@@ -509,12 +474,14 @@ def make_pipeline_ldiv(F, mesh: Mesh, axis: str = "chunks",
             # rows (each shard is a contiguous block row range)
             return xw.reshape(-1, xw.shape[-1])
 
+    factors = replicated_factors(F, mesh)
+
     def solve(b):
         b = jnp.asarray(b, dtype=F.dtype)
         squeeze = b.ndim == 1
         if squeeze:
             b = b[:, None]
-        x = run(F.ldata, F.udata, F._pperm, F._qperm, F._rs_blk, b)
+        x = run(*factors(), b)
         return x[:, 0] if squeeze else x
 
     return solve

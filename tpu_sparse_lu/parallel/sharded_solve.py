@@ -1,6 +1,6 @@
 """Mesh-sharded level-scheduled triangular solves.
 
-TPU-native realisation of the reference's *intended* parallel design
+Device-mesh realisation of the reference's *intended* parallel design
 (SURVEY.md C10): SharedMemSparseLU.jl's namesake plan was MPI shared-memory
 windows with the chunk loop rank-striped across a node — declared (MPI dep,
 ``allocate_shared`` export) but never implemented in the snapshot
@@ -19,8 +19,8 @@ the replicated solution carrier. Sequential dependencies cross levels only,
 so the collective count is ``num_levels`` — the minimum any
 shared-memory-style schedule needs.
 
-Implemented with ``shard_map`` over a 1-D ``Mesh``; on hardware the psum
-rides ICI. Works identically on a simulated CPU mesh
+Implemented with ``shard_map`` over a 1-D ``Mesh``; on GPUs XLA hands the
+psum to NCCL (NVLink within a host). Works identically on a simulated CPU mesh
 (``--xla_force_host_platform_device_count``) for CI.
 """
 
@@ -38,6 +38,7 @@ from jax.sharding import Mesh, PartitionSpec as P
 from jax import shard_map
 
 from ..solve import TriKernelData, block_rhs, unblock_rhs
+from .mesh import replicated_factors
 from ..symbolic import TriPlan
 
 __all__ = ["ShardedTriPlan", "build_sharded_tri_plan", "sharded_blocked_tri_solve",
@@ -361,7 +362,7 @@ def sharded_ldiv(
     """Full permute-scale → lsolve → rsolve → unpermute across the mesh
     (reference ldiv! semantics, src:286-342).
 
-    Permutations are the block-one-hot :class:`~..ops.permute.PermPlan`
+    Permutations are the row-gather :class:`~..ops.permute.PermPlan`
     applies of the single-device path — rectangular maps, so the
     ordering="nd" embedding (input space ≠ factor space) composes: the
     perms run replicated outside the shard_map, the level-striped solves
@@ -388,15 +389,15 @@ def make_sharded_ldiv(F, mesh: Mesh, axis: str = "chunks",
 
     Returns ``solve(b)`` accepting ``(n,)`` or ``(n, R)``; the solve runs
     level-striped over the mesh devices. Composes with every ordering,
-    including the "nd" embedding. Reuses F's packed tiles; call again
-    after a refactorization.
+    including the "nd" embedding. Reuses F's packed tiles and copies them
+    again after a refactorization.
 
     With ``multihost=True`` the mesh may span processes (built by
     :func:`~.mesh.make_global_mesh` after
     :func:`~.mesh.initialize_multihost`): the factor tiles are replicated
-    as GLOBAL arrays once up front and each call replicates the
-    process-local RHS — the per-level psum then rides ICI within a host
-    and DCN across hosts.
+    as GLOBAL arrays once per numeric state and each call replicates the
+    process-local RHS — the per-level psum then crosses hosts over the
+    cluster network.
 
     With ``shard_output=True`` the returned solution is PARTITIONED over
     the mesh axis (contiguous row blocks, ``out_specs=P(axis)``) instead
@@ -435,11 +436,7 @@ def make_sharded_ldiv(F, mesh: Mesh, axis: str = "chunks",
 
             return my_rows(xp)
 
-    args = (F.ldata, F.udata, F._pperm, F._qperm, F._rs_blk)
-    if multihost:
-        from .mesh import replicate_to_mesh
-
-        args = replicate_to_mesh(args, mesh)
+    factors = replicated_factors(F, mesh, multihost=multihost)
 
     def solve(b):
         b = jnp.asarray(b, dtype=F.dtype)
@@ -450,7 +447,7 @@ def make_sharded_ldiv(F, mesh: Mesh, axis: str = "chunks",
             from .mesh import replicate_to_mesh
 
             b = replicate_to_mesh(b, mesh)
-        x = run(*args, b)
+        x = run(*factors(), b)
         return x[:, 0] if squeeze else x
 
     return solve

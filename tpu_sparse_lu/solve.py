@@ -1,6 +1,6 @@
 """Level-scheduled blocked triangular solves and the full ``ldiv``.
 
-TPU-native replacement for the reference's hot loop (SURVEY.md §3.2):
+Device replacement for the reference's hot loop (SURVEY.md §3.2):
 ``lsolve!``/``rsolve!`` run a *serial* chunk loop of BLAS ``trsv!`` +
 ``gemm!`` (/root/reference/src/SharedMemSparseLU.jl:349-367, :374-392).
 Here the chunk dependency DAG is layered into levels (host side, in
@@ -16,7 +16,7 @@ The right-hand side is carried chunk-blocked as ``xw : (K+1, cs, R)`` —
 row block ``K`` is a zero dummy slot absorbing padded lanes — so every
 per-level op is a clean gather / batched-matmul / scatter with static
 shapes. Multi-RHS (the SpSM config in BASELINE.md) falls out for free:
-``R > 1`` turns every tile op into an MXU matmul.
+``R > 1`` turns every tile op into a batched matmul.
 
 Two schedule executors:
 
@@ -54,7 +54,7 @@ __all__ = [
 
 
 def _bmm(a, b):
-    """Batched (tile) matmul, fp32-accumulated on MXU."""
+    """Batched (tile) matmul, fp32-accumulated."""
     return lax.dot_general(
         a,
         b,
@@ -69,8 +69,7 @@ class TriKernelData:
     """Device-resident numeric data + schedule for one triangular factor.
 
     Consumed by the XLA level-scan engine (:func:`blocked_tri_solve`) and
-    the mesh engines; the fused Pallas ldiv (ops/pallas_ldiv.py) instead
-    consumes a flat op stream built from the same tiles."""
+    the mesh engines."""
 
     diag: jax.Array  # (K+1, cs, cs) diagonal tiles (padding rows = I)
     diag_inv: Optional[jax.Array]  # (K+1, cs, cs) tile inverses, or None
@@ -97,9 +96,9 @@ def tile_inverses(diag: jax.Array, *, lower: bool, unit: bool) -> jax.Array:
 
     One-time cost per (re)factorization; afterwards the hot solve path is
     pure batched matmul (partitioned-inverse trick — replaces the
-    reference's per-chunk ``trsv!``, src:359/:384, with MXU work).
+    reference's per-chunk ``trsv!``, src:359/:384, with matmul work).
     Computed by blocked recursion over batched matmuls (ops/tri_inverse)
-    rather than ``triangular_solve`` — no sequential substitution on TPU.
+    rather than ``triangular_solve`` — no sequential substitution.
     """
     from .ops.tri_inverse import tri_inverse
 
@@ -199,15 +198,13 @@ def blocked_tri_solve(
 
 
 def _prefers_unrolled(plan: TriPlan, max_unrolled_levels: int = 192) -> bool:
-    """Schedule heuristic.
+    """Schedule heuristic: the unrolled executor wins for wide shallow
+    DAGs where padding waste dominates, on backends whose policy allows
+    it (utils/config.backend_policy; compile time grows with the level
+    count)."""
+    from .utils.config import backend_policy
 
-    Measured on TPU (v5e): the padded ``lax.scan`` compiles fast and runs
-    ~1-2us/level, while unrolled ragged levels blow up Mosaic/XLA compile
-    time (minutes) and run orders of magnitude slower — so on TPU we always
-    scan. On CPU the unrolled path wins for wide shallow DAGs where padding
-    waste dominates.
-    """
-    if jax.default_backend() != "cpu":
+    if backend_policy().scan_only:
         return False
     if plan.num_levels > max_unrolled_levels:
         return False

@@ -140,7 +140,7 @@ def factorize_host(
 
 
 # ---------------------------------------------------------------------------
-# Chunk/tile planner + level scheduler (reference C2 → TPU tiles + levels)
+# Chunk/tile planner + level scheduler (reference C2 → device tiles + levels)
 # ---------------------------------------------------------------------------
 
 

@@ -21,27 +21,26 @@ class SolverConfig:
         (the reference's ``chunk_size``, src:64-72). ``None`` → size-based
         policy in :func:`default_chunk_size`.
       tri_mode: how per-level diagonal-tile triangular systems are solved.
-        * ``"auto"``      — (default) per-backend pick at construction:
-                            ``"inv"`` on TPU (the fused Pallas fast path —
-                            its accuracy story is carried by the fp32+IR
-                            tests and the ``make_f64_ldiv`` tier), ``"trsm"``
-                            elsewhere (exact to machine precision). Mirrors
-                            the reference's zero-boilerplate default
+        * ``"auto"``      — (default) the backend's pick
+                            (:func:`backend_policy`; ``"trsm"`` on
+                            every supported backend today). Mirrors the
+                            reference's zero-boilerplate default
                             constructor (src:64-72).
         * ``"trsm"``      — batched ``lax.linalg.triangular_solve`` (exact;
                             matches the reference's BLAS ``trsv!``,
                             src:359/:384, to machine precision).
         * ``"inv"``       — multiply by precomputed tile inverses: the whole
-                            solve becomes batched matmul (MXU-only hot path).
+                            solve becomes batched matmul.
         * ``"inv_refine"``— ``inv`` plus one residual-correction step per
                             tile solve (backward-stable at ~2x the matmuls).
       dtype: numeric dtype for factors and solves. ``None`` → inherit from
         the input matrix (float64 when x64 is enabled, else float32).
-      matmul_precision: JAX matmul precision for all tile ops. TPU MXUs
-        multiply f32 inputs in bf16 by default; a level-scheduled solve
-        compounds that error across hundreds of dependent levels into O(1)
-        garbage (measured), so the default here is "highest" (full-f32
-        passes). "default" recovers raw bf16 speed for error-tolerant uses.
+      matmul_precision: JAX matmul precision for all tile ops. Reduced-
+        precision float32 products (TF32 tensor cores on the GPU keep ~3
+        decimal digits) compound across hundreds of dependent levels of a
+        level-scheduled solve, so the default is "highest" (full-f32
+        products). "default" lets the backend pick its fast f32 mode for
+        error-tolerant uses.
       schedule: level-schedule execution style.
         * ``"scan"``    — ``lax.scan`` over levels padded to the maximum
                           level width (compact program; best for long, thin
@@ -56,7 +55,6 @@ class SolverConfig:
     dtype: Optional[str] = None
     matmul_precision: str = "highest"
     schedule: str = "auto"
-    use_pallas: str = "auto"  # "auto" | "always" | "never"
     # Ordering: "colamd" (SuperLU default) or "nd" — chunk-aligned staged
     # nested dissection (ordering.py): embeds A with identity padding rows
     # so every chunk holds mutually-independent subdomain rows; measured on
@@ -68,21 +66,14 @@ class SolverConfig:
     ordering: str = "colamd"
     pivot_threshold: Optional[float] = None
     # nd base-subdomain size (default cs): larger -> fewer, denser
-    # off-diagonal tiles (fewer stream bytes — the fused solve's cost) at
-    # the price of more fill; see the measured sweep in docs/roadmap.md.
-    # "auto" sweeps {cs, 2cs, 4cs} and keeps the byte-model minimum (one
-    # trial factorization per candidate)
+    # off-diagonal tiles and fewer levels at the price of more fill.
+    # "auto" sweeps {cs, 2cs, 4cs} and keeps the candidate with the least
+    # padded level-scan work (one trial factorization per candidate)
     nd_cutoff: object = None  # None | int | "auto"
-    # device working-set ceiling (bytes) for enable_device_refactor's HBM
-    # guard; None -> the 9 GB v5e-calibrated default in api.py
+    # device working-set ceiling (bytes) for enable_device_refactor's
+    # memory guard; None -> the device's own memory limit
+    # (api.device_memory_budget), or no limit where the backend reports none
     refactor_store_budget: Optional[int] = None
-    # dtype of the fused-ldiv L/U tile STREAM (the dominant HBM traffic of
-    # a solve — the kernel is byte-bound, see docs/roadmap.md cost model).
-    # "bfloat16" halves the f32 pages (diag inverses included) at ~3
-    # decimal digits of tile precision; pair with ldiv(refine_steps=1) or
-    # make_f64_ldiv to restore accuracy. Panel and XLA-engine tiles stay
-    # at `dtype`.
-    stream_dtype: str = "float32"
 
     # first-factorization backend: "host" (SuperLU via scipy, re-pivots;
     # the default) or "device" — skip SuperLU numeric entirely and run the
@@ -92,7 +83,8 @@ class SolverConfig:
     # then known from the pattern alone, so construction pays only
     # pattern planning + one device program instead of a full host
     # numeric factorization (the reference's construct-time C dependency,
-    # src:74). "auto" picks "device" when eligible on TPU, else "host".
+    # src:74). "auto" picks "device" when the ordering is eligible,
+    # else "host".
     factorize: str = "host"
 
     def __post_init__(self):
@@ -104,44 +96,76 @@ class SolverConfig:
             raise ValueError(
                 f"unknown matmul_precision: {self.matmul_precision!r}"
             )
-        if self.use_pallas not in ("auto", "always", "never"):
-            raise ValueError(f"unknown use_pallas: {self.use_pallas!r}")
         if self.ordering not in ("colamd", "nd", "natural", "mmd"):
             raise ValueError(f"unknown ordering: {self.ordering!r}")
         if not (self.nd_cutoff is None or self.nd_cutoff == "auto"
                 or isinstance(self.nd_cutoff, int)):
             raise ValueError(f"unknown nd_cutoff: {self.nd_cutoff!r}")
-        if self.stream_dtype not in ("float32", "bfloat16"):
-            raise ValueError(f"unknown stream_dtype: {self.stream_dtype!r}")
         if self.factorize not in ("host", "device", "auto"):
             raise ValueError(f"unknown factorize: {self.factorize!r}")
 
 
-def resolve_tri_mode(tri_mode: str, backend: str, dtype) -> str:
-    """Resolve ``tri_mode="auto"`` per backend (VERDICT r4 #7).
+    @classmethod
+    def from_dict(cls, d: dict) -> "SolverConfig":
+        """Rebuild from ``dataclasses.asdict`` output, ignoring fields this
+        version no longer has (files saved by older versions carry e.g.
+        ``stream_dtype`` and ``use_pallas``)."""
+        names = {f.name for f in dataclasses.fields(cls)}
+        return cls(**{k: v for k, v in d.items() if k in names})
 
-    TPU → ``"inv"``: the only mode the fused Pallas ldiv serves
-    (api._pallas_eligible), ~10x faster than the XLA scan engine on the
-    headline config (BENCH_r04: 59 us vs 635 us); its accuracy story is
-    fp32+refine_steps / make_f64_ldiv. Everywhere else → ``"trsm"``:
-    exact triangular solves, which the f64 CPU test bars (1e-12) assume.
+
+@dataclasses.dataclass(frozen=True)
+class BackendPolicy:
+    """Everything the solver decides from the JAX backend, in one place.
+
+    Attributes:
+      backend: ``"gpu"`` or ``"cpu"``.
+      tri_mode: what ``tri_mode="auto"`` resolves to.
+      scan_only: ``schedule="auto"`` always takes the ``lax.scan`` level
+        executor (the unrolled one multiplies compile time by the level
+        count; it only pays where per-op dispatch is cheap, on the CPU).
+      tile_lu_kernel: the device refactorization may factor its diagonal
+        tiles with the compiled tile-LU kernel (ops/pallas_factor.py)
+        instead of the XLA rank-1 loop.
     """
-    if tri_mode != "auto":
-        return tri_mode
-    return "inv" if backend == "tpu" else "trsm"
+
+    backend: str
+    tri_mode: str
+    scan_only: bool
+    tile_lu_kernel: bool
+
+    def use_tile_lu(self, cs: int, dtype) -> bool:
+        """Whether the tile-LU kernel serves ``cs``-edge tiles of ``dtype``
+        (a power-of-two edge up to 128, float32 or float64)."""
+        from ..ops.pallas_factor import supports_lu_tile
+
+        return self.tile_lu_kernel and supports_lu_tile(cs, dtype)
 
 
-def default_chunk_size(n: int, backend: str = "") -> int:
-    """Chunk-size policy when the user does not pass one.
+def backend_policy(backend: Optional[str] = None) -> BackendPolicy:
+    """The :class:`BackendPolicy` of ``backend`` (default: JAX's default
+    backend). Any backend other than ``"gpu"`` and ``"cpu"`` is an error:
+    nothing in this package is tuned or tested for it."""
+    if backend is None:
+        import jax
 
-    The reference defaults to 8 and clamps to n (src:67-72). On TPU the
-    fused Pallas ldiv requires ``cs % 128 == 0`` (lane tiling), so the
-    default there is 128 whenever the problem is big enough to fill a
-    tile — the no-config constructor must land on the fast path
-    (VERDICT r4 #7). Elsewhere smaller tiles scale with problem size.
-    """
-    if backend == "tpu":
-        return max(1, min(128, n))
+        backend = jax.default_backend()
+    if backend == "gpu":
+        return BackendPolicy("gpu", tri_mode="trsm", scan_only=True,
+                             tile_lu_kernel=True)
+    if backend == "cpu":
+        return BackendPolicy("cpu", tri_mode="trsm", scan_only=False,
+                             tile_lu_kernel=False)
+    raise ValueError(
+        f"unsupported JAX backend {backend!r}: tpu_sparse_lu runs on "
+        "'gpu' (CUDA) and 'cpu'"
+    )
+
+
+def default_chunk_size(n: int) -> int:
+    """Chunk size the solver picks for an ``n``-row matrix when the user
+    passes none: the reference defaults to 8 and clamps to n (src:67-72);
+    larger problems get larger tiles."""
     if n <= 256:
         cs = 8
     elif n <= 4096:
